@@ -1,0 +1,290 @@
+"""Fused top-k memory read: CUDA kernel wrappers and their plain PyTorch versions.
+
+Counterpart of mivos_tpu/ops/pallas/memory_read.py::memory_read_pallas,
+same contract: mem_k (K, M, 128) and mem_v (K, M, 512) in fp32 or bf16,
+query_k (N, 128), optional (M,) bool `valid`, `n_refine` refine passes;
+returns the (K, N, 512) fp32 readout.
+
+The algorithm (three phases, one kernel each in csrc/memory_read.cu):
+  A  per row, the top-2 affinities in each of 256 bins under two
+     partitions of the memory axis -- bin1(j) = j mod 256 and
+     bin2(j) = (j mod 256 + 85 * ((j mod 1024) div 256)) mod 256, keyed on
+     the TPU tiling's 1024 -- then 22 fp32 bisection steps on
+     [rowmax - 30, rowmax] for the largest t with
+     max(count1(t), count2(t)) >= top_k. Counts never overcount, so t is
+     a lower bound on the k-th affinity and the kept set a superset of
+     the exact top-k. With top_k >= the live count no midpoint passes and
+     t = rowmax - 30: a full softmax up to weights below e^-30.
+  refine (x n_refine)  exact counts at 7 edges over [t, t + min(ub-t, 0.15)]
+     raise t to the highest edge still holding >= top_k entries.
+  B  w = (a >= t) ? exp(a - rowmax) : 0; readout = (w as the value dtype) . V
+     / sum(w).
+Phase statistics travel as one (K, 3, N) fp32 tensor: threshold, row
+max, refine upper bound.
+
+Each phase has a kernel wrapper (`*_cuda`: CUDA tensors only, raises on
+anything else, counts its launches) and a plain version (`*_plain`:
+dense PyTorch ops on the materialized (K, N, M) affinity; the CPU path,
+and the reference the kernels are checked against on the card).
+`memory_read_threshold_cuda` / `_plain` chain the three phases.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
+THRESH_RANGE = 30.0
+BISECT_ITERS = 22
+C_BINS = 256
+TPU_TM = 1024     # tile the second partition's roll is keyed on
+ROLL = 85
+N_EDGES = 7
+REFINE_CAP = 0.15
+CK, CV = 128, 512
+
+# Launches of each kernel since the last reset: a wrapper adds one
+# exactly where it launches its kernel; the plain versions never count.
+_LAUNCHES: Dict[str, int] = {"candidates": 0, "refine": 0, "readout": 0}
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def scaled_query(query_k: torch.Tensor) -> torch.Tensor:
+    """(N, CK) query keys -> fp32, scaled by 1/sqrt(CK), contiguous."""
+    return (query_k.to(torch.float32)
+            * (1.0 / math.sqrt(query_k.shape[-1]))).contiguous()
+
+
+def additive_mask(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(M,) bool live mask -> (M,) fp32 additive mask (0 / -1e30)."""
+    if valid is None:
+        return None
+    zero = torch.zeros((), dtype=torch.float32, device=valid.device)
+    return torch.where(valid, zero, torch.full_like(zero, NEG_INF)).contiguous()
+
+
+# ----------------------------------------------------------------------
+# Plain versions
+# ----------------------------------------------------------------------
+
+def masked_affinity(q: torch.Tensor, mem_k: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """(K, N, M) fp32 affinity of the scaled query plus the additive mask."""
+    aff = torch.matmul(q, mem_k.to(torch.float32).transpose(1, 2))
+    return aff if mask is None else aff + mask
+
+
+def _top2_bins(aff: torch.Tensor):
+    """Per-row, per-bin top-2 values under both partitions:
+    (K, N, 2, C_BINS) pairs (a >= b) for partition 1 and 2."""
+    k, n, m = aff.shape
+    m_pad = -(-m // TPU_TM) * TPU_TM
+    a = F.pad(aff, (0, m_pad - m), value=NEG_INF)
+    slices = m_pad // C_BINS
+    p1 = a.view(k, n, slices, C_BINS).topk(2, dim=2).values
+    s = torch.arange(slices, device=aff.device)
+    roll = (ROLL * (s % (TPU_TM // C_BINS))) % C_BINS
+    src = (torch.arange(C_BINS, device=aff.device)[None] - roll[:, None]) % C_BINS
+    idx = (s[:, None] * C_BINS + src).reshape(-1)
+    p2 = a[..., idx].view(k, n, slices, C_BINS).topk(2, dim=2).values
+    return p1, p2
+
+
+def candidates_plain(aff: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Phase A on a masked affinity -> (K, 3, N) stats."""
+    p1, p2 = _top2_bins(aff)
+    rowmax = torch.maximum(p1[:, :, 0].amax(-1), p2[:, :, 0].amax(-1))
+    lo, hi = rowmax - THRESH_RANGE, rowmax
+    for _ in range(BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        m4 = mid[..., None, None]
+        n1 = (p1 >= m4).sum(dim=(2, 3))
+        n2 = (p2 >= m4).sum(dim=(2, 3))
+        ok = torch.maximum(n1, n2) >= top_k
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return torch.stack([lo, rowmax, rowmax], dim=1)
+
+
+def refine_plain(aff: torch.Tensor, stats: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """One refine pass: exact counts at N_EDGES edges above the threshold."""
+    th, mx, ub = stats.unbind(1)
+    delta = ((ub - th).clamp(max=REFINE_CAP) / float(N_EDGES)).clamp(min=1e-7)
+    counts = torch.stack(
+        [(aff >= (th + float(i + 1) * delta)[..., None]).sum(-1)
+         for i in range(N_EDGES)], dim=-1)
+    nok = (counts >= top_k).sum(-1).to(torch.float32)
+    th_new = th + nok * delta
+    ub_new = torch.where(nok < float(N_EDGES),
+                         torch.minimum(ub, th_new + delta), ub)
+    return torch.stack([th_new, mx, ub_new], dim=1)
+
+
+def readout_plain(aff: torch.Tensor, mem_v: torch.Tensor,
+                  stats: torch.Tensor) -> torch.Tensor:
+    """Phase B: thresholded exp weights, (w as the value dtype) . V / sum(w)."""
+    th, mx = stats[:, 0, :, None], stats[:, 1, :, None]
+    w = torch.where(aff >= th, torch.exp(aff - mx),
+                    torch.zeros((), device=aff.device))
+    num = torch.matmul(w.to(mem_v.dtype).to(torch.float32),
+                       mem_v.to(torch.float32))
+    return num / w.sum(dim=-1, keepdim=True)
+
+
+def memory_read_threshold_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
+                                query_k: torch.Tensor, top_k: int = 50,
+                                valid: Optional[torch.Tensor] = None,
+                                n_refine: int = 0) -> torch.Tensor:
+    """The kernels' algorithm as dense PyTorch ops."""
+    aff = masked_affinity(scaled_query(query_k), mem_k, additive_mask(valid))
+    stats = candidates_plain(aff, top_k)
+    for _ in range(n_refine):
+        stats = refine_plain(aff, stats, top_k)
+    return readout_plain(aff, mem_v, stats)
+
+
+# ----------------------------------------------------------------------
+# Kernel wrappers
+# ----------------------------------------------------------------------
+
+def _check_bank(name: str, x: torch.Tensor, k: int, m: int, c: int) -> None:
+    if not x.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name} must be float32 or bfloat16, got {x.dtype}")
+    if tuple(x.shape) != (k, m, c):
+        raise ValueError(f"{name} must have shape {(k, m, c)}, got "
+                         f"{tuple(x.shape)}")
+    # Rows contiguous; the object axis may stride over a larger buffer
+    # (a bank's live prefix). Rows load as 16-byte vectors.
+    if x.stride(2) != 1 or x.stride(1) != c:
+        raise ValueError(f"{name} rows must be contiguous, strides "
+                         f"{x.stride()}")
+    if (x.stride(0) * x.element_size()) % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned per object")
+    if k > 65535:  # the object axis is the grid's y dimension
+        raise ValueError(f"{name} has too many objects: {tuple(x.shape)}")
+
+
+def _check_f32(name: str, x: Optional[torch.Tensor], shape, device) -> None:
+    if x is None:
+        return
+    if (x.device != device or x.dtype != torch.float32
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 {tuple(shape)} "
+                         f"tensor on {device}, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}")
+
+
+def _common(q: torch.Tensor, mem_k: torch.Tensor, mask, top_k: int):
+    k, m = mem_k.shape[:2]
+    n = q.shape[0]
+    _check_bank("mem_k", mem_k, k, m, CK)
+    _check_f32("q", q, (n, CK), mem_k.device)
+    _check_f32("mask", mask, (m,), mem_k.device)
+    if m < 1 or n < 1 or top_k < 1:
+        raise ValueError(f"need M, N, top_k >= 1 (M={m}, N={n}, "
+                         f"top_k={top_k})")
+    return k, n, m
+
+
+def _launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")
+    _LAUNCHES[name] += 1
+
+
+def _lib():
+    from mivos_tpu_torch.ops.cuda.build import load_library
+
+    return load_library().lib
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def candidates_cuda(q: torch.Tensor, mem_k: torch.Tensor,
+                    mask: Optional[torch.Tensor], top_k: int) -> torch.Tensor:
+    """Phase A kernel: scaled query (N, 128) fp32, keys, additive mask
+    (M,) or None -> (K, 3, N) stats."""
+    k, n, m = _common(q, mem_k, mask, top_k)
+    stats = torch.empty((k, 3, n), dtype=torch.float32, device=mem_k.device)
+    with torch.cuda.device(mem_k.device):
+        _launch("candidates", _lib().mr_candidates(
+            q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
+            stats.data_ptr(), k, n, m, top_k,
+            int(mem_k.dtype == torch.bfloat16), _stream(mem_k.device)))
+    return stats
+
+
+def refine_cuda(q: torch.Tensor, mem_k: torch.Tensor,
+                mask: Optional[torch.Tensor], stats: torch.Tensor,
+                top_k: int) -> torch.Tensor:
+    """One refine-pass kernel: (K, 3, N) stats -> new (K, 3, N) stats."""
+    k, n, m = _common(q, mem_k, mask, top_k)
+    _check_f32("stats", stats, (k, 3, n), mem_k.device)
+    out = torch.empty_like(stats)
+    with torch.cuda.device(mem_k.device):
+        _launch("refine", _lib().mr_refine(
+            q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
+            stats.data_ptr(), out.data_ptr(), k, n, m, top_k,
+            int(mem_k.dtype == torch.bfloat16), _stream(mem_k.device)))
+    return out
+
+
+def readout_cuda(q: torch.Tensor, mem_k: torch.Tensor, mem_v: torch.Tensor,
+                 mask: Optional[torch.Tensor],
+                 stats: torch.Tensor) -> torch.Tensor:
+    """Phase B kernel -> (K, N, 512) fp32 readout."""
+    k, n, m = _common(q, mem_k, mask, 1)
+    _check_bank("mem_v", mem_v, k, m, CV)
+    if mem_v.dtype != mem_k.dtype:
+        raise ValueError(f"mem_k/mem_v dtypes differ: {mem_k.dtype} vs "
+                         f"{mem_v.dtype}")
+    _check_f32("stats", stats, (k, 3, n), mem_k.device)
+    out = torch.empty((k, n, CV), dtype=torch.float32, device=mem_k.device)
+    with torch.cuda.device(mem_k.device):
+        _launch("readout", _lib().mr_readout(
+            q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), mem_v.data_ptr(),
+            mem_v.stride(0), _ptr(mask), stats.data_ptr(), out.data_ptr(),
+            k, n, m, int(mem_k.dtype == torch.bfloat16),
+            _stream(mem_k.device)))
+    return out
+
+
+def memory_read_threshold_cuda(mem_k: torch.Tensor, mem_v: torch.Tensor,
+                               query_k: torch.Tensor, top_k: int = 50,
+                               valid: Optional[torch.Tensor] = None,
+                               n_refine: int = 0) -> torch.Tensor:
+    """Launch the phase kernels on the current stream (no
+    synchronisation). Raises on CPU tensors, unsupported dtypes, shapes
+    or layouts, a missing nvcc, or a failed launch."""
+    if not (mem_k.is_cuda and query_k.is_cuda):
+        raise ValueError("memory_read_threshold_cuda takes CUDA tensors")
+    if query_k.shape[-1] != CK or query_k.ndim != 2:
+        raise ValueError(f"query_k must be (N, {CK}), got {tuple(query_k.shape)}")
+    if n_refine < 0:
+        raise ValueError(f"n_refine must be >= 0, got {n_refine}")
+    q = scaled_query(query_k)
+    mask = None if valid is None else additive_mask(valid.to(mem_k.device))
+    stats = candidates_cuda(q, mem_k, mask, top_k)
+    for _ in range(n_refine):
+        stats = refine_cuda(q, mem_k, mask, stats, top_k)
+    return readout_cuda(q, mem_k, mem_v, mask, stats)

@@ -1,0 +1,132 @@
+"""The CUDA memory-read kernels against their plain PyTorch version.
+
+Needs an NVIDIA Hopper GPU and nvcc: every test here is marked `cuda`
+and skips on machines without a card. Run on the card with
+`python -m pytest tests/test_torch_kernels.py --noconftest -q`
+(`--noconftest` where jax is not installed: tests/conftest.py imports it).
+
+Both sides run the same algorithm on the same inputs; the kernel's
+affinities are sequential fp32 FMAs while the plain version uses a
+cuBLAS fp32 matmul, so their affinities differ by ~1e-6 relative and a
+few near-tie boundary entries may fall on different sides of the
+threshold. Hence the gate on the MEAN error (1e-4 of the readout scale)
+plus the exact-read gate of the JAX kernel check (max 0.3, mean 1e-3).
+"""
+import numpy as np
+import pytest
+import torch
+
+from mivos_tpu_torch.ops.cuda import memory_read as cmr
+from mivos_tpu_torch.ops.memory_read import memory_read
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _card_and_full_fp32():
+    # Decided here, not at import or collection: every pytest-xdist
+    # worker must collect the same tests.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _peaky(rng, k, m, n):
+    lat = rng.randn(32, 128).astype(np.float32)
+    mk = (rng.randn(k, m, 32).astype(np.float32) ** 3) @ lat * 0.15
+    q = (rng.randn(n, 32).astype(np.float32) ** 3) @ lat * 0.15
+    mv = rng.randn(k, m, 512).astype(np.float32)
+    return mk, mv, q
+
+
+def _iid(rng, k, m, n):
+    return (rng.randn(k, m, 128).astype(np.float32),
+            rng.randn(k, m, 512).astype(np.float32),
+            rng.randn(n, 128).astype(np.float32))
+
+
+def _to_cuda(mk, mv, q, dtype):
+    return (torch.from_numpy(mk).cuda().to(dtype),
+            torch.from_numpy(mv).cuda().to(dtype), torch.from_numpy(q).cuda())
+
+
+CASES = [
+    # (inputs, K, M, N, live)  M ragged against every tile (128/256/1024)
+    ("peaky", 3, 2777, 1620, 2500),
+    ("peaky", 2, 1000, 37, None),
+    ("iid", 1, 5013, 300, 4213),
+]
+
+
+@pytest.mark.parametrize("n_refine", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"{c[0]}-M{c[2]}-N{c[3]}")
+def test_kernel_matches_plain(case, dtype, n_refine):
+    kind, k, m, n, live = case
+    rng = np.random.RandomState(m)
+    mk, mv, q = _to_cuda(*(_peaky if kind == "peaky" else _iid)(rng, k, m, n),
+                         dtype)
+    valid = None if live is None else torch.arange(m, device="cuda") < live
+    before = cmr.launch_counts()
+    out = cmr.memory_read_threshold_cuda(mk, mv, q, top_k=50, valid=valid,
+                                         n_refine=n_refine)
+    torch.cuda.synchronize()
+    after = cmr.launch_counts()
+    assert after["candidates"] == before["candidates"] + 1
+    assert after["refine"] == before["refine"] + n_refine
+    assert after["readout"] == before["readout"] + 1
+    ref = cmr.memory_read_threshold_plain(mk, mv, q, top_k=50, valid=valid,
+                                          n_refine=n_refine)
+    exact = memory_read(mk, mv, q, top_k=50, valid=valid, backend="exact")
+    assert out.shape == (k, n, 512) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    scale = exact.abs().mean().item()
+    assert (out - ref).abs().mean().item() <= 1e-4 * scale
+    if kind == "peaky":  # the JAX gate's limits; iid ties are ungated there
+        assert (out - exact).abs().mean().item() < 1e-3 * scale
+        assert (out - exact).abs().max().item() < 0.3 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_full_softmax_when_topk_geq_live(dtype):
+    rng = np.random.RandomState(1)
+    mk, mv, q = _to_cuda(*_peaky(rng, 1, 1500, 200), dtype)
+    valid = torch.arange(1500, device="cuda") < 1200
+    out = cmr.memory_read_threshold_cuda(mk, mv, q, top_k=1500, valid=valid)
+    plain = cmr.memory_read_threshold_plain(mk, mv, q, top_k=1500, valid=valid)
+    full = memory_read(mk, mv, q, top_k=None, valid=valid, backend="exact")
+    torch.testing.assert_close(out, plain, atol=1e-4, rtol=0)
+    # The exact read rounds the NORMALIZED weights to the bank dtype, the
+    # threshold read the unnormalized ones: equal in fp32, within bf16
+    # resolution (2^-8 relative per weight) for bf16 banks.
+    atol = 2e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out, full, atol=atol, rtol=0)
+
+
+def test_strided_bank_prefix_view():
+    """A bank's live prefix (object axis striding over the full buffer)
+    reads like the same rows copied out contiguously."""
+    rng = np.random.RandomState(2)
+    mk, mv, q = _to_cuda(*_peaky(rng, 3, 3000, 1620), torch.bfloat16)
+    view_k, view_v = mk[:, :2100], mv[:, :2100]
+    assert not view_k.is_contiguous()
+    a = cmr.memory_read_threshold_cuda(view_k, view_v, q, top_k=50)
+    b = cmr.memory_read_threshold_cuda(view_k.contiguous(),
+                                       view_v.contiguous(), q, top_k=50)
+    torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_bad_inputs_raise():
+    mk = torch.zeros(2, 100, 128, device="cuda")
+    mv = torch.zeros(2, 100, 512, device="cuda")
+    q = torch.zeros(30, 128, device="cuda")
+    with pytest.raises(ValueError):
+        cmr.memory_read_threshold_cuda(mk.half(), mv.half(), q)
+    with pytest.raises(ValueError):
+        cmr.memory_read_threshold_cuda(mk, mv[:, :, :256], q)
+    with pytest.raises(ValueError):
+        cmr.memory_read_threshold_cuda(mk.transpose(0, 1).contiguous()
+                                       .transpose(0, 1)[:, :, :128], mv, q)
