@@ -1,1 +1,1 @@
-"""Weight conversion from the JAX package's parameter trees."""
+"""Weight loading: the JAX package's parameter trees and reference .pth files."""

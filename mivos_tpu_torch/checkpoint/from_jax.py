@@ -8,9 +8,11 @@ flax): conv kernels HWIO -> OIHW (`_conv_kernel`, :39), FrozenBatchNorm
 `downsample_{conv,bn}` -> `downsample.{0,1}` (`_RESNET_RULES`, :92-96),
 `rgb_encoder/layer1` -> `rgb_encoder.res2` (:104-106), and FusionNet's
 `conv1`, `conv2_0/1`, `conv3_0/1` -> the reference Sequential indices
-(:139-145). The port's module names are the reference's, so the result
-loads with strict=True and feeds straight back into convert.py.
-Operates on numpy arrays; no jax import.
+(:139-145), and S2MNetwork's DeepLab head (`project`, `aspp.b0-b3`,
+`aspp.pool_conv`, `aspp.project`, `classifier0/1`) -> the reference
+Sequential indices (`convert_s2m`, :156-172). The port's module names
+are the reference's, so the result loads with strict=True and feeds
+straight back into convert.py. Operates on numpy arrays; no jax import.
 """
 from __future__ import annotations
 
@@ -34,6 +36,17 @@ _RULES = (
     (r"^conv2_1\.", "conv2.2."),
     (r"^conv3_0\.", "conv3.0."),
     (r"^conv3_1\.", "conv3.2."),
+    (r"^classifier\.project\.conv\.", "classifier.project.0."),
+    (r"^classifier\.project\.bn\.", "classifier.project.1."),
+    (r"^classifier\.aspp\.b(\d)\.conv\.", r"classifier.aspp.convs.\1.0."),
+    (r"^classifier\.aspp\.b(\d)\.bn\.", r"classifier.aspp.convs.\1.1."),
+    (r"^classifier\.aspp\.pool_conv\.conv\.", "classifier.aspp.convs.4.1."),
+    (r"^classifier\.aspp\.pool_conv\.bn\.", "classifier.aspp.convs.4.2."),
+    (r"^classifier\.aspp\.project\.conv\.", "classifier.aspp.project.0."),
+    (r"^classifier\.aspp\.project\.bn\.", "classifier.aspp.project.1."),
+    (r"^classifier\.classifier0\.conv\.", "classifier.classifier.0."),
+    (r"^classifier\.classifier0\.bn\.", "classifier.classifier.1."),
+    (r"^classifier\.classifier1\.", "classifier.classifier.3."),
 )
 
 
@@ -49,8 +62,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax tree ({'params': ...} or the bare tree) of PropagationNetwork
-    or FusionNet -> the port's state_dict (fp32 torch tensors)."""
+    """Flax tree ({'params': ...} or the bare tree) of PropagationNetwork,
+    FusionNet or S2MNetwork -> the port's state_dict (fp32 torch
+    tensors)."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}

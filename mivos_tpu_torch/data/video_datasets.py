@@ -1,0 +1,90 @@
+"""DAVIS test sequences (counterpart of
+mivos_tpu/data/video_datasets.py::DAVISTestDataset; reference
+dataset/davis_test_dataset.py).
+
+Returns numpy NHWC dicts:
+  rgb:  (T, H, W, 3) float32, ImageNet-normalized
+  gt:   (K, T, H, W, 1) float32 one-hot object masks
+  info: name / num_frames / labels
+PIL is imported only where a file is decoded.
+"""
+from __future__ import annotations
+
+import os
+from os import path
+from typing import Dict, List
+
+import numpy as np
+
+from mivos_tpu_torch.data.transforms import all_to_onehot, im_normalize
+
+
+def _load_rgb(p: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(p).convert("RGB"), np.uint8)
+
+
+def _load_palette_mask(p: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(p).convert("P"), np.uint8)
+
+
+class DAVISTestDataset:
+    """DAVIS 2016/2017 val loader at 480p, multi-object (reference
+    davis_test_dataset.py:18-110).
+
+    root layout: JPEGImages/480p/<video>/%05d.jpg,
+    Annotations/480p/<video>/%05d.png, ImageSets/<imset>.
+    """
+
+    def __init__(self, root: str, imset: str = "2017/val.txt"):
+        self.root = root
+        self.image_dir = path.join(root, "JPEGImages", "480p")
+        self.mask_dir = path.join(root, "Annotations", "480p")
+
+        self.videos: List[str] = []
+        self.num_frames: Dict[str, int] = {}
+        with open(path.join(root, "ImageSets", imset)) as f:
+            for line in f:
+                video = line.strip()
+                if not video:
+                    continue
+                self.videos.append(video)
+                self.num_frames[video] = len(
+                    os.listdir(path.join(self.image_dir, video)))
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def _masks(self, video: str) -> np.ndarray:
+        masks = []
+        for f in range(self.num_frames[video]):
+            mask_file = path.join(self.mask_dir, video, f"{f:05d}.png")
+            if path.exists(mask_file):
+                masks.append(_load_palette_mask(mask_file))
+            else:
+                masks.append(np.zeros_like(masks[0]))
+        return np.stack(masks)
+
+    def load_labels(self, index: int):
+        """Annotation labels only, no RGB decode. Returns ((T, H, W)
+        uint8 raw-palette labels, object-id list)."""
+        lab = self._masks(self.videos[index])
+        labels = np.unique(lab[0])
+        return lab, labels[labels != 0].tolist()
+
+    def __getitem__(self, index: int) -> Dict:
+        video = self.videos[index]
+        t = self.num_frames[video]
+        rgb = np.stack([im_normalize(_load_rgb(
+            path.join(self.image_dir, video, f"{f:05d}.jpg")))
+            for f in range(t)]).astype(np.float32)
+        lab, labels = self.load_labels(index)
+        gt = all_to_onehot(lab, labels).astype(np.float32)[..., None]
+        return {
+            "rgb": rgb,
+            "gt": gt,
+            "info": {"name": video, "num_frames": t, "labels": labels},
+        }
