@@ -15,11 +15,18 @@ Phases (any failure exits non-zero before the final line):
              readout scale) and against the exact torch.topk read (mean
              < 1e-3, max < 0.3 of the readout scale), n_refine 0 and 1;
              each kernel alone against its plain phase; the iid-gaussian
-             regime at M = 20480, reported only; CUDA event timings of
-             each kernel (with its merge), its plain phase and its bound
-             at M = 1620, 11340 and 21060, bf16 (the smallest, middle and
-             largest bank of a bench round), and the whole read against
-             the plain and exact reads at M = 21060.
+             regime at M = 20480, fp32 and bf16, n_refine 0, 1 and 2,
+             reported only; CUDA event timings of each kernel wrapper
+             (kernel and merge), its plain phase and its bound at
+             M = 1620, 11340 and 21060 (the smallest, middle and largest
+             bank of a bench round), one line for bf16 banks (with the
+             whole read against the plain and exact reads at M = 21060,
+             and two refine calls that must give equal bits) and one for
+             fp32 banks. Bound: the tensor-core FLOPs at the bf16 peak
+             or the bytes at the memory rate, whichever is larger (see
+             bound_ms: the affinity as the JAX kernel's bf16 passes, two
+             for bf16 keys and three for fp32 keys, w.V as one bf16 pass
+             on bf16 banks and as three, fp32-accurate, on fp32 banks).
   3. check   a small fp32 session through the kernels against the same
              session through the exact read.
   4. session the bench protocol through InferenceCore.interact: 60
@@ -52,8 +59,8 @@ Phases (any failure exits non-zero before the final line):
 The line before the last is {"kernels": [...]}, one entry per TPU
 kernel: "launches" sums its CUDA launches (kernel and merge) over the
 session and davis runs, "max_abs_err" is the worst of both gates, "ms",
-"plain_ms" and "bound_ms" are at M = 21060 bf16. The last line is
-{"ok": true, "device": {...}}.
+"plain_ms" and "bound_ms" are at M = 21060 bf16, and "fp32" holds the
+same at M = 21060 fp32. The last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -95,7 +102,8 @@ REPLACES = {"candidates": "mivos_tpu/ops/pallas/memory_read.py:116",
 # The CUDA launches (launch-counter names) of each TPU kernel's counterpart
 # on a bf16 bank, and how many of each one read makes per refine pass.
 LAUNCHES = {"candidates": ("candidates", "candidates_merge"),
-            "refine": ("refine",), "readout": ("readout", "readout_merge")}
+            "refine": ("refine", "refine_merge"),
+            "readout": ("readout", "readout_merge")}
 TIMING_M = (1620, 11340, 21060)
 # NVIDIA H100 SXM peaks at 700 W (data sheet): dense bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
@@ -281,53 +289,64 @@ def phase_gate(dev):
     rng = np.random.RandomState(0)
     gk, gv, gq = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
                   for s in ((K, 20480, 128), (K, 20480, 512), (1620, 128)))
-    out = cmr.memory_read_threshold_cuda(gk, gv, gq, TOP_K)
-    exact = memory_read(gk, gv, gq, top_k=TOP_K, backend="exact")
-    plain = cmr.memory_read_threshold_plain(gk, gv, gq, TOP_K)
-    log(json.dumps({"regime": "iid-gaussian", "M": 20480, "dtype": "float32",
-                    "readout_scale": exact.abs().mean().item(),
-                    "vs_plain_mean": (out - plain).abs().mean().item(),
-                    "vs_exact_mean": (out - exact).abs().mean().item(),
-                    "vs_exact_max": (out - exact).abs().max().item()}))
+    for dtype in (torch.float32, torch.bfloat16):
+        gk, gv = gk.to(dtype), gv.to(dtype)
+        exact = memory_read(gk, gv, gq, top_k=TOP_K, backend="exact")
+        for n_refine in (0, 1, 2):
+            out = cmr.memory_read_threshold_cuda(gk, gv, gq, TOP_K, None, n_refine)
+            plain = cmr.memory_read_threshold_plain(gk, gv, gq, TOP_K, None, n_refine)
+            log(json.dumps({"regime": "iid-gaussian", "M": 20480,
+                            "dtype": str(dtype)[6:], "n_refine": n_refine,
+                            "readout_scale": exact.abs().mean().item(),
+                            "vs_plain_mean": (out - plain).abs().mean().item(),
+                            "vs_exact_mean": (out - exact).abs().mean().item(),
+                            "vs_exact_max": (out - exact).abs().max().item()}))
     del gk, gv, out, exact, plain
 
-    timing = phase_timing(mk_all, mv_all, q)
+    timing = {dtype: phase_timing(mk_all, mv_all, q, dtype)
+              for dtype in (torch.bfloat16, torch.float32)}
     return errs, timing, (mk_all, mv_all, q)
 
 
-def bound_ms(name, k, n, m):
-    """Least time of one call of a TPU kernel's counterpart on a bf16 bank
-    with a mask: its tensor-core FLOPs (the affinity as the split's two
-    bf16 passes, plus w.V for the readout) at the bf16 peak, or its bytes
-    (each input read once, each output written once) at the memory rate,
-    whichever is larger. Returns (ms, "operations" | "bytes")."""
-    flops = 2 * 2 * k * n * m * cmr.CK
-    nbytes = k * m * cmr.CK * 2 + m * 4 + k * 3 * n * 4   # keys, mask, stats
+def bound_ms(name, k, n, m, dtype):
+    """Least time of one call of a TPU kernel's counterpart on a bank of
+    `dtype` with a mask: its tensor-core FLOPs at the bf16 peak, or its
+    bytes (each input read once, each output written once) at the memory
+    rate, whichever is larger. The affinity counts as the JAX kernel's
+    bf16 passes (`_affinity`, pallas/memory_read.py:102-113): two for
+    bf16 keys, three for fp32 keys; the readout's w.V as one bf16 pass on
+    bf16 banks and as three on fp32 banks (an fp32-accurate product from
+    bf16 passes, as the affinity's). Returns (ms, "operations" | "bytes")."""
+    bf16 = dtype == torch.bfloat16
+    passes, esize = (2, 2) if bf16 else (3, 4)
+    flops = passes * 2 * k * n * m * cmr.CK
+    # keys, mask, stats, the query (fp32 q, or bf16 q_hi and q_lo)
+    nbytes = k * m * cmr.CK * esize + m * 4 + k * 3 * n * 4 + n * cmr.CK * 4
     if name == "refine":
-        nbytes += n * cmr.CK * 4 + k * 3 * n * 4          # q~, stats out
-    else:
-        nbytes += 2 * n * cmr.CK * 2                       # q_hi, q_lo
+        nbytes += k * 3 * n * 4                                # stats out
     if name == "readout":
-        flops += 2 * k * n * m * cmr.CV
-        nbytes += k * m * cmr.CV * 2 + k * n * cmr.CV * 4  # values, out
+        flops += (1 if bf16 else 3) * 2 * k * n * m * cmr.CV
+        nbytes += k * m * cmr.CV * esize + k * n * cmr.CV * 4  # values, out
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_timing(mk_all, mv_all, q):
+def phase_timing(mk_all, mv_all, q, dtype):
     """CUDA-event times of each kernel wrapper (kernel and merge), its
-    plain phase (affinity included) and its bound at M = TIMING_M, bf16,
-    K = 3, N = 1620, the last TAIL slots invalid; the whole read against
-    the plain and exact reads at the largest M. Prints one line; returns
-    {M: {...}}."""
+    plain phase (affinity included) and its bound at M = TIMING_M, banks
+    of `dtype`, K = 3, N = 1620, the last TAIL slots invalid. bf16 banks
+    also: the whole read against the plain and exact reads at the largest
+    M, and two refine calls that must give equal bits. Prints one line;
+    returns {M: {...}}."""
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bf16 = dtype == torch.bfloat16
     timing = {}
     for m in TIMING_M:
-        mk = mk_all[:, :m].to(torch.bfloat16).contiguous()
-        mv = mv_all[:, :m].to(torch.bfloat16).contiguous()
+        mk = mk_all[:, :m].to(dtype).contiguous()
+        mv = mv_all[:, :m].to(dtype).contiguous()
         k, n = mk.shape[0], q.shape[0]
-        rq = cmr.read_query(q, torch.bfloat16)
+        rq = cmr.read_query(q, dtype)
         valid = torch.arange(m, device=dev) < m - TAIL
         mask = cmr.additive_mask(valid)
         st = cmr.candidates_cuda(rq, mk, mask, TOP_K)
@@ -342,25 +361,30 @@ def phase_timing(mk_all, mv_all, q):
             "candidates": cuda_ms(plain_phase(lambda a: cmr.candidates_plain(a, TOP_K)), 3, 1),
             "refine": cuda_ms(plain_phase(lambda a: cmr.refine_plain(a, st, TOP_K)), 3, 1),
             "readout": cuda_ms(plain_phase(lambda a: cmr.readout_plain(a, mv, st)), 3, 1)}
-        bounds = {name: bound_ms(name, k, n, m) for name in REPLACES}
+        bounds = {name: bound_ms(name, k, n, m, dtype) for name in REPLACES}
         rep = {"kernel_ms": ms, "plain_ms": plain_ms,
                "bound_ms": {name: b[0] for name, b in bounds.items()},
                "bound_by": {name: b[1] for name, b in bounds.items()},
-               "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms},
-               "splits": {name: cmr.split_count(cmr.range_blocks(name, k, n), m,
-                                                sms, cmr.MAX_SPLITS[name])
-                          for name in ("candidates", "readout")}}
-        if m == TIMING_M[-1]:
+               "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms}}
+        if bf16:
+            refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K)
+            rep["refine_repeats_bitwise"] = bool(torch.equal(
+                cmr.refine_cuda(rq, mk, mask, st, TOP_K), refined))
+            check(rep["refine_repeats_bitwise"], f"refine differs between calls at M = {m}")
+            rep["splits"] = {name: cmr.kernel_splits(name, k, n, m, sms) for name in REPLACES}
+        if bf16 and m == TIMING_M[-1]:
             rep.update({
                 "kernel_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
                     mk, mv, q, TOP_K, valid)),
+                "kernel_read_refine1_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
+                    mk, mv, q, TOP_K, valid, 1)),
                 "plain_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_plain(
                     mk, mv, q, TOP_K, valid), 3, 1),
                 "exact_read_ms": cuda_ms(lambda: memory_read(
                     mk, mv, q, top_k=TOP_K, valid=valid, backend="exact"), 3, 1)})
         timing[m] = rep
         del mk, mv
-    log(json.dumps({"timing": "bfloat16", "K": K, "N": q.shape[0], "by_M": timing}))
+    log(json.dumps({"timing": str(dtype)[6:], "K": K, "N": q.shape[0], "by_M": timing}))
     return timing
 
 
@@ -464,14 +488,15 @@ def session_invariants(core, labels):
 
 
 def check_read_launches(counts_before, reads, read_refine, bank_dtype):
-    """Each memory read launches candidates and readout once, on bf16
-    banks their merges once, and refine read_refine times; return the
-    counts now."""
+    """Each memory read launches candidates and readout once, refine
+    read_refine times, and on bf16 banks each kernel's merge as often as
+    the kernel; return the counts now."""
     got = cmr.launch_counts()
     merges = int(bank_dtype == torch.bfloat16)
     for name, per_read in (("candidates", 1), ("candidates_merge", merges),
                            ("readout", 1), ("readout_merge", merges),
-                           ("refine", read_refine)):
+                           ("refine", read_refine),
+                           ("refine_merge", read_refine * merges)):
         check(got[name] - counts_before[name] == per_read * reads,
               f"{name}: {got[name] - counts_before[name]} launches for "
               f"{reads} reads")
@@ -615,7 +640,7 @@ def watched_cores(calls, read_shapes):
     orig_candidates = cmr.candidates_cuda
 
     def candidates_cuda(rq, mem_k, mask, top_k):
-        read_shapes.add((mem_k.shape[0], rq.q.shape[0], mem_k.shape[1]))
+        read_shapes.add((mem_k.shape[0], rq.rows, mem_k.shape[1]))
         return orig_candidates(rq, mem_k, mask, top_k)
 
     def interact(self, mask, idx):
@@ -689,7 +714,8 @@ def phase_davis(dev):
     check(counts["candidates"] == counts["candidates_merge"] == counts["readout"]
           == counts["readout_merge"] == total_reads,
           f"launches {counts} for {total_reads} reads")
-    check(counts["refine"] == 0, "refine launched at read_refine=0")
+    check(counts["refine"] == counts["refine_merge"] == 0,
+          "refine launched at read_refine=0")
     check(total_reads > 0, "the DAVIS path made no memory read")
     jf = [v for traj in summary["records"].values() for _, v in traj]
     check(all(0.0 <= v <= 1.0 for v in jf), f"J&F outside [0, 1]: {jf}")
@@ -787,7 +813,7 @@ def main():
     for name in REPLACES:
         session = sum(launches[c] for c in LAUNCHES[name])
         davis = sum(davis_launches[c] for c in LAUNCHES[name])
-        at = timing[TIMING_M[-1]]
+        at, at32 = (timing[dtype][TIMING_M[-1]] for dtype in (torch.bfloat16, torch.float32))
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[name], "launches": session + davis,
@@ -798,8 +824,13 @@ def main():
             "ms": at["kernel_ms"][name], "plain_ms": at["plain_ms"][name],
             "bound_ms": at["bound_ms"][name], "bound_by": at["bound_by"][name],
             "library_ms": None,   # no PyTorch call computes a thresholded top-k read
-            "ms_by_M": {m: timing[m]["kernel_ms"][name] for m in TIMING_M},
-            "bound_ms_by_M": {m: timing[m]["bound_ms"][name] for m in TIMING_M}})
+            "ms_by_M": {m: timing[torch.bfloat16][m]["kernel_ms"][name] for m in TIMING_M},
+            "bound_ms_by_M": {m: timing[torch.bfloat16][m]["bound_ms"][name]
+                              for m in TIMING_M},
+            "fp32": {"ms": at32["kernel_ms"][name], "plain_ms": at32["plain_ms"][name],
+                     "bound_ms": at32["bound_ms"][name], "bound_by": at32["bound_by"][name],
+                     "ms_by_M": {m: timing[torch.float32][m]["kernel_ms"][name]
+                                 for m in TIMING_M}}})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,17 +12,18 @@
 //   _candidates_kernel (phase A: top-2 per bin under two partitions, then
 //   bisection for t):
 //     candidates_bf16_kernel + candidates_merge_kernel   bf16 banks
-//     candidates_kernel<float>                           fp32 banks
+//     candidates_kernel                                  fp32 banks
 //   _refine_kernel (exact-count threshold tightening):
-//     refine_kernel<bf16 | float>
+//     refine_bf16_kernel + refine_merge_kernel           bf16 banks
+//     refine_kernel                                      fp32 banks
 //   _readout_kernel (phase B: thresholded exp, w.V):
 //     readout_bf16_kernel + readout_merge_kernel         bf16 banks
 //     readout_kernel                                     fp32 banks
 //
 // Layout and contract (checked by the Python wrapper, ops/cuda/memory_read.py):
-//   q      (N, 128) fp32, pre-scaled by 1/sqrt(128), contiguous; for bf16
-//          banks also q_hi = bf16(q), q_lo = bf16(q - q_hi), each (N, 128)
-//          bf16, and q itself is q_hi + q_lo (exact in fp32)
+//   q      (N, 128) fp32, pre-scaled by 1/sqrt(128), contiguous (fp32
+//          banks); for bf16 banks its split q_hi = bf16(q), q_lo =
+//          bf16(q - q_hi), each (N, 128) bf16
 //   keys   (K, M, 128) fp32 or bf16, rows contiguous, object stride stride_k
 //   values (K, M, 512) same dtype as keys, object stride stride_v
 //   mask   (M,) fp32 additive (0 or -1e30), or null for "all live"
@@ -33,8 +34,10 @@
 // split (_affinity): a = q_hi.k + q_lo.k, two bf16 passes with fp32
 // accumulation on the tensor cores, which is q.k up to fp32 rounding
 // since bf16 keys are exact tensor-core inputs. The readout runs both its
-// products on wgmma (sm_90a); phase A runs the affinity on
-// mma.sync.m16n8k16 (its 32-row tile is below wgmma's 64 rows). The query
+// products on wgmma (sm_90a), refine its affinity; phase A runs the
+// affinity on mma.sync.m16n8k16 (its 32-row tile is below wgmma's 64
+// rows). All three add per K step of 16 the q_hi product, then the q_lo
+// product, into one fp32 accumulator, so they rank the same numbers. The query
 // split is staged once per block and held in shared memory. Key and value
 // chunks, and the mask's chunk, stream through a two-stage cp.async ring
 // (the next chunk loads while the current one is multiplied; a mask read
@@ -71,6 +74,24 @@
 //   the top-2 of the union of the ranges' pairs (exact), then one warp per
 //   row runs the 22 bisection steps.
 //
+//   refine_bf16_kernel: one block per (64 query rows, M-range, object),
+//   one warpgroup; the query halves stay in registers as wgmma's A
+//   fragments, and per 64-key chunk (K-major in the 128-byte swizzle) the
+//   split affinity on wgmma.m64n64k16 lands in a 64 x 64 fp32
+//   accumulator, 32 registers a thread. The epilogue reads it there: each
+//   entry is compared once with its row's lowest edge, and only the few
+//   at or above it (about top_k of a row's M) run the 7 edge compares.
+//   Each thread counts for its two rows in registers; the quad's lanes
+//   add their counts by shuffles at the end, and the block writes int32
+//   counts (S, K, N, 7). 150 registers a thread and 67 KB of shared
+//   memory let three blocks share an SM, so one block's epilogue and
+//   staging hide behind another's wgmma. refine_merge_kernel adds the
+//   ranges' counts (integers: exact in any order) and updates the stats.
+//   Every block computes the edges from the stats with the same rounded
+//   fp32 operations as the merge. Tried and slower at the timing shape:
+//   the query read by wgmma from shared memory (by 8%), blocks of two
+//   warpgroups and 128 rows (7%), 128-key chunks (84%).
+//
 // What bounds them on the H100 at the session's timing shape (K = 3,
 // N = 1620, M = 21060, bf16 bank). The affinity counts as the JAX
 // kernel's two bf16 passes, 2 x 26.2 = 52.4 GFLOP. Readout: 52.4 + 104.8
@@ -93,19 +114,20 @@
 // registers and one barrier per chunk, cut the L2->SM traffic to 1.26 GB
 // and ran no faster.
 //
-// fp32 banks keep the first version's design: one block per (object, 16
-// query rows) looping over all of M, keys staged as fp32, a 16 x 128
-// affinity tile by sequential fp32 FMAs (a single bf16 or TF32 pass costs
-// ~10% weight error on trained banks), w.V by FMAs. The refine pass uses
-// that design for both dtypes, given q_hi + q_lo for bf16 banks so that
-// all phases rank the same affinities. All arithmetic that decides the
-// selection (bisection midpoints, refine edges) uses explicitly rounded
-// fp32 operations, so that given equal affinities kernel and plain
-// PyTorch version pick the same set.
+// Refine at that shape: the same 52.4 GFLOP as phase A, 0.053 ms.
+//
+// fp32 banks keep the first version's design in all three phases: one
+// block per (object, 16 query rows) looping over all of M, keys staged
+// as fp32, a 16 x 128 affinity tile by sequential fp32 FMAs (a single
+// bf16 or TF32 pass costs ~10% weight error on trained banks), w.V by
+// FMAs; all three rank that one FMA affinity. All arithmetic that decides
+// the selection (bisection midpoints, refine edges) uses explicitly
+// rounded fp32 operations, so that given equal affinities kernel and
+// plain PyTorch version pick the same set.
 //
 // Left undone: TMA for the staging (cp.async stages everything); the
-// fp32-bank kernels and refine still compute the affinity with FMAs;
-// phases A and B are not fused.
+// fp32-bank kernels still compute the affinity with FMAs; phases A and B
+// are not fused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,7 +139,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int CK = 128;          // key width
 constexpr int CV = 512;          // value width
-constexpr int TN = 16;           // query rows per block (fp32-bank kernels, refine)
+constexpr int TN = 16;           // query rows per block (fp32-bank kernels)
 constexpr int THREADS = 256;
 constexpr int KC = 128;          // keys per affinity chunk
 constexpr int KS = CK + 4;       // shared row stride of q/k tiles (floats)
@@ -135,16 +157,6 @@ constexpr float REFINE_CAP = 0.15f;
 static_assert(TN * 4 * C_BINS <= KC * KS, "bin state must fit the key buffer");
 static_assert(VC * CV <= KC * KS, "value chunk must fit the key buffer");
 
-__device__ __forceinline__ void bf16x8_to_f32(uint4 raw, float* dst) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 // Copy `rows` rows of `width` elements starting at row j0 into shared
 // memory as fp32 with row stride `stride`; rows >= M are zero.
 template <int ROWS, int WIDTH, int STRIDE>
@@ -157,22 +169,6 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, int M,
     if (j0 + r < M)
       v = reinterpret_cast<const float4*>(src + (size_t)(j0 + r) * WIDTH)[c];
     *reinterpret_cast<float4*>(dst + r * STRIDE + c * 4) = v;
-  }
-}
-
-template <int ROWS, int WIDTH, int STRIDE>
-__device__ __forceinline__ void load_rows(const bf16* __restrict__ src,
-                                          int M, int j0, float* dst) {
-  constexpr int PER_ROW = WIDTH / 8;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = i % PER_ROW;
-    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (j0 + r < M)
-      bf16x8_to_f32(
-          reinterpret_cast<const uint4*>(src + (size_t)(j0 + r) * WIDTH)[c], f);
-    float* d = dst + r * STRIDE + c * 8;
-    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
   }
 }
 
@@ -273,9 +269,8 @@ __device__ __forceinline__ float2 bisect_row(const float v1[16], const float v2[
 // 2 in bin (j mod 256 + 85 * ((j mod 1024) div 256)) mod 256. Slices past
 // the end of the bank would only insert -1e30 and are skipped. At the end
 // the state goes to shared memory and one warp per row bisects.
-template <typename KT>
 __global__ void __launch_bounds__(THREADS)
-candidates_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
+candidates_kernel(const float* __restrict__ q, const float* __restrict__ keys,
                   long long stride_k, const float* __restrict__ mask,
                   float* __restrict__ stats, int N, int M, int top_k) {
   extern __shared__ float4 smem4[];
@@ -284,7 +279,7 @@ candidates_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
   float* aff = ks + KC * KS;                      // TN x C_BINS (one slice)
   const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
   const int rg = tid >> 6, kg = tid & 63;
-  const KT* kb = keys + (size_t)k * stride_k;
+  const float* kb = keys + (size_t)k * stride_k;
   load_queries(q, N, n0, qs);
 
   float p1a[TN], p1b[TN], p2a[TN], p2b[TN];
@@ -352,14 +347,40 @@ candidates_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
 }
 
 // ---------------------------------------------------------------------------
-// Refine pass. Replaces _refine_kernel (mivos_tpu/ops/pallas/memory_read.py:221).
-// Bounded like the fp32-bank phase A (the same affinity stream, plus 7
-// compares per element). Counts, per row, the entries reaching each of 7 edges
-// th + (i+1)*delta over [th, th + min(ub - th, 0.15)]; 16 threads share a
-// row and reduce their integer counts by shuffles at the end.
-template <typename KT>
+// Refine pass: per row, exact counts of the entries reaching each of 7
+// edges th + (e+1)*delta over [th, th + min(ub - th, 0.15)], then th
+// rises to the highest edge still counting >= top_k entries and ub falls
+// to the next edge up. The edges and the update use explicitly rounded
+// fp32 operations, as refine_plain's fp32 tensor ops round them.
+__device__ __forceinline__ float refine_delta(float th, float ub) {
+  return fmaxf(__fdiv_rn(fminf(__fsub_rn(ub, th), REFINE_CAP), (float)N_EDGES), 1e-7f);
+}
+
+__device__ __forceinline__ float refine_edge(float th, float delta, int e) {
+  return __fadd_rn(th, __fmul_rn((float)(e + 1), delta));
+}
+
+// Row n's new (th, mx, ub) from its counts; `sin` and `sout` point at
+// the object's (3, N) stats.
+__device__ __forceinline__ void refine_update(const int cnt[N_EDGES], const float* sin,
+                                              float* sout, int n, int N, int top_k) {
+  const float th = sin[n], mx = sin[N + n], ub = sin[2 * N + n];
+  const float delta = refine_delta(th, ub);
+  int nok = 0;
+#pragma unroll
+  for (int e = 0; e < N_EDGES; ++e) nok += cnt[e] >= top_k;
+  const float th_new = __fadd_rn(th, __fmul_rn((float)nok, delta));
+  sout[n] = th_new;
+  sout[N + n] = mx;
+  sout[2 * N + n] = nok < N_EDGES ? fminf(ub, __fadd_rn(th_new, delta)) : ub;
+}
+
+// Refine for fp32 banks. Replaces _refine_kernel
+// (mivos_tpu/ops/pallas/memory_read.py:221). Bounded like the fp32-bank
+// phase A (the same affinity stream, plus 7 compares per element); 16
+// threads share a row and reduce their integer counts by shuffles.
 __global__ void __launch_bounds__(THREADS)
-refine_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
+refine_kernel(const float* __restrict__ q, const float* __restrict__ keys,
               long long stride_k, const float* __restrict__ mask,
               const float* __restrict__ stats_in, float* __restrict__ stats_out,
               int N, int M, int top_k) {
@@ -370,17 +391,14 @@ refine_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
   float* edges = aff + TN * AFS;                  // TN x N_EDGES
   const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
   const int rg = tid >> 6, kg = tid & 63;
-  const KT* kb = keys + (size_t)k * stride_k;
+  const float* kb = keys + (size_t)k * stride_k;
   const float* sin = stats_in + (size_t)k * 3 * N;
   load_queries(q, N, n0, qs);
   if (tid < TN) {
     const int n = min(n0 + tid, N - 1);
-    const float th = sin[n], ub = sin[2 * N + n];
-    const float delta =
-        fmaxf(__fdiv_rn(fminf(__fsub_rn(ub, th), REFINE_CAP), (float)N_EDGES), 1e-7f);
+    const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
 #pragma unroll
-    for (int e = 0; e < N_EDGES; ++e)
-      edges[tid * N_EDGES + e] = __fadd_rn(th, __fmul_rn((float)(e + 1), delta));
+    for (int e = 0; e < N_EDGES; ++e) edges[tid * N_EDGES + e] = refine_edge(th, delta, e);
   }
 
   const int row = tid >> 4, col = tid & 15;
@@ -416,21 +434,8 @@ refine_kernel(const float* __restrict__ q, const KT* __restrict__ keys,
 #pragma unroll
     for (int o = 8; o > 0; o >>= 1) cnt[e] += __shfl_xor_sync(0xffffffffu, cnt[e], o);
 
-  if (col == 0 && n0 + row < N) {
-    const int n = n0 + row;
-    const float th = sin[n], mx = sin[N + n], ub = sin[2 * N + n];
-    const float delta =
-        fmaxf(__fdiv_rn(fminf(__fsub_rn(ub, th), REFINE_CAP), (float)N_EDGES), 1e-7f);
-    int nok = 0;
-#pragma unroll
-    for (int e = 0; e < N_EDGES; ++e) nok += cnt[e] >= top_k;
-    const float th_new = __fadd_rn(th, __fmul_rn((float)nok, delta));
-    const float ub_new = nok < N_EDGES ? fminf(ub, __fadd_rn(th_new, delta)) : ub;
-    float* o = stats_out + (size_t)k * 3 * N + n;
-    o[0] = th_new;
-    o[N] = mx;
-    o[2 * N] = ub_new;
-  }
+  if (col == 0 && n0 + row < N)
+    refine_update(cnt, sin, stats_out + (size_t)k * 3 * N, n0 + row, N, top_k);
 }
 
 // ---------------------------------------------------------------------------
@@ -909,14 +914,15 @@ constexpr size_t kReadoutBf16Smem =
 // Stage rows [row0, row0 + ROWS) of a (.., CK) bf16 matrix (zero from
 // `limit` on) K-major in the 128-byte swizzle: columns 0-63 of all rows,
 // then columns 64-127, each row a 128-byte line at byte 128*r of its half
-// with its 16-byte chunks permuted by chunk ^ (r % 8).
-template <int ROWS>
+// with its 16-byte chunks permuted by chunk ^ (r % 8). NT threads copy.
+template <int ROWS, int NT = THREADS>
 __device__ __forceinline__ void stage_rows_sw128(bf16* dst, const bf16* __restrict__ src,
                                                  int row0, int limit) {
+  static_assert((ROWS * (CK / 8)) % NT == 0, "piece layout");
   char* d = reinterpret_cast<char*>(dst);
 #pragma unroll
-  for (int t = 0; t < ROWS * (CK / 8) / THREADS; ++t) {
-    const int i = threadIdx.x + t * THREADS;
+  for (int t = 0; t < ROWS * (CK / 8) / NT; ++t) {
+    const int i = threadIdx.x + t * NT;
     const int u = i & 15, r = i >> 4;
     const bool valid = row0 + r < limit;
     cp_async16(d + (u >> 3) * ROWS * 128 + r * 128 + (((u & 7) ^ (r & 7)) << 4),
@@ -1104,6 +1110,177 @@ readout_merge_kernel(const float* __restrict__ ws_acc,
 }
 
 // ---------------------------------------------------------------------------
+// Refine for bf16 banks. Replaces _refine_kernel
+// (mivos_tpu/ops/pallas/memory_read.py:221). 64 query rows and one
+// warpgroup a block, 64-key chunks. The query halves are staged once and
+// then held in registers as wgmma's A fragments (warp w: rows 16*w..,
+// the mma.sync A fragment per K step, 64 registers), so each wgmma reads
+// only the keys from shared memory. The accumulator is the m16n8
+// fragment per n-tile: lane (g, t4) owns rows g and g + 8 at columns
+// 8*nt + 2*t4 and +1. Writes (S, K, N, 7) int32 counts.
+constexpr int RF_ROWS = 64;
+constexpr int RF_KC = 64;
+constexpr int RF_THREADS = 128;
+constexpr size_t kRefineBf16Smem =
+    (size_t)(2 * RF_KC * CK + 2 * RF_ROWS * QSB) * sizeof(bf16) + 2 * RF_KC * sizeof(float);
+// Blocks an SM holds: 228 KB of shared memory, 1 KB of it reserved per block.
+constexpr int RF_SM_BLOCKS = (int)(228 * 1024 / (kRefineBf16Smem + 1024));
+static_assert(SPLIT_ALIGN % RF_KC == 0, "chunks tile the M ranges");
+
+// wgmma (sm_90a): D (64 x 64 fp32) += A (64 x 16 bf16 in registers, the
+// mma.sync A fragment of rows 16*warp..) x B (16 x 64 bf16, K-major in
+// shared memory, described by `db`).
+__device__ __forceinline__ void wgmma_64x64x16_rs(float d[32], const uint32_t a[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__global__ void __launch_bounds__(RF_THREADS, RF_SM_BLOCKS)
+refine_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
+                   const bf16* __restrict__ keys, long long stride_k,
+                   const float* __restrict__ mask, const float* __restrict__ stats_in,
+                   int* __restrict__ ws, int N, int M, int S) {
+  extern __shared__ __align__(1024) uint4 smem_u4[];
+  bf16* sk = reinterpret_cast<bf16*>(smem_u4);    // 2 stages x RF_KC x CK, K-major swizzled
+  bf16* sqh = sk + 2 * RF_KC * CK;                // RF_ROWS x QSB
+  bf16* sql = sqh + RF_ROWS * QSB;                // RF_ROWS x QSB
+  float* smask = reinterpret_cast<float*>(sql + RF_ROWS * QSB);  // 2 stages x RF_KC
+  const int n0 = blockIdx.x * RF_ROWS, s = blockIdx.y, k = blockIdx.z, K = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bf16* kb = keys + (size_t)k * stride_k;
+  const float* sin = stats_in + (size_t)k * 3 * N;
+  int j_begin, j_end;
+  split_range(M, S, s, j_begin, j_end);
+  const int nch = (j_end - j_begin + RF_KC - 1) / RF_KC;
+
+  float edge[2][N_EDGES];
+  int cnt[2][N_EDGES];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = min(n0 + warp * 16 + g + 8 * h, N - 1);
+    const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
+#pragma unroll
+    for (int e = 0; e < N_EDGES; ++e) {
+      edge[h][e] = refine_edge(th, delta, e);
+      cnt[h][e] = 0;
+    }
+  }
+
+  stage_rows<RF_ROWS, CK, QSB, RF_THREADS>(sqh, q_hi, n0, N);
+  stage_rows<RF_ROWS, CK, QSB, RF_THREADS>(sql, q_lo, n0, N);
+  stage_rows_sw128<RF_KC, RF_THREADS>(sk, kb, j_begin, M);
+  if (mask) stage_mask<RF_KC>(smask, mask, j_begin, M);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  uint32_t ah[CK / 16][4], al[CK / 16][4];
+  const int qoff = (warp * 16 + (lane & 15)) * QSB + (lane >> 4) * 8;
+#pragma unroll
+  for (int kk = 0; kk < CK / 16; ++kk) {
+    ldmatrix_x4(ah[kk], sqh + qoff + kk * 16);
+    ldmatrix_x4(al[kk], sql + qoff + kk * 16);
+  }
+  for (int c = 0; c < nch; ++c) {
+    const int j0 = j_begin + c * RF_KC, buf = c & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();   // chunk c landed; chunk c-1's stage is free
+    if (c + 1 < nch) {
+      stage_rows_sw128<RF_KC, RF_THREADS>(sk + (buf ^ 1) * RF_KC * CK, kb, j0 + RF_KC, M);
+      if (mask) stage_mask<RF_KC>(smask + (buf ^ 1) * RF_KC, mask, j0 + RF_KC, M);
+      cp_async_commit();
+    }
+    // Split affinity, the readout's order: per K step kk (key columns
+    // 16*kk.., in half kk/4 at byte 32*(kk%4)) the q_hi pass, then q_lo.
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const char* kc = reinterpret_cast<const char*>(sk + buf * RF_KC * CK);
+    wgmma_fence_operands<32>(acc);
+    wgmma_fence();
+    wgmma_fence_operands<32>(acc);
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const uint64_t dk =
+          gmma_desc_sw128(kc + (kk >> 2) * RF_KC * 128 + (kk & 3) * 32, 16, SW_ATOM);
+      wgmma_64x64x16_rs(acc, ah[kk], dk);
+      wgmma_64x64x16_rs(acc, al[kk], dk);
+    }
+    wgmma_commit_and_wait();
+    wgmma_fence_operands<32>(acc);
+    // One compare per entry against its row's lowest edge; the edges are
+    // nondecreasing, so an entry below it reaches none. Keys past M (the
+    // bank's end, inside the last chunk) count for nothing.
+    const float* sm = mask ? smask + buf * RF_KC : nullptr;
+    const int live = M - j0;
+#pragma unroll
+    for (int nt = 0; nt < RF_KC / 8; ++nt) {
+      const int col = nt * 8 + t4 * 2;
+      const float2 mk = sm ? *reinterpret_cast<const float2*>(sm + col)
+                           : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          float a = acc[4 * nt + 2 * h + e2];
+          if (sm) a += e2 ? mk.y : mk.x;
+          if (a >= edge[h][0] && col + e2 < live) {
+#pragma unroll
+            for (int e = 0; e < N_EDGES; ++e) cnt[h][e] += a >= edge[h][e];
+          }
+        }
+    }
+  }
+
+  // Per row: the four lanes of a quad hold its columns.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < N_EDGES; ++e) {
+      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 1);
+      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 2);
+    }
+    const int n = n0 + warp * 16 + g + 8 * h;
+    if (t4 == 0 && n < N) {
+      int* o = ws + (((size_t)s * K + k) * N + n) * N_EDGES;
+#pragma unroll
+      for (int e = 0; e < N_EDGES; ++e) o[e] = cnt[h][e];
+    }
+  }
+}
+
+// Merge of refine's ranges: per (object, row) the sum of the S ranges'
+// counts, then the update of the stats.
+__global__ void __launch_bounds__(THREADS)
+refine_merge_kernel(const int* __restrict__ ws, const float* __restrict__ stats_in,
+                    float* __restrict__ stats_out, int K, int N, int S, int top_k) {
+  const int row = blockIdx.x * THREADS + threadIdx.x;
+  if (row >= K * N) return;
+  int cnt[N_EDGES] = {0, 0, 0, 0, 0, 0, 0};
+  for (int s = 0; s < S; ++s) {
+    const int* p = ws + ((size_t)s * K * N + row) * N_EDGES;
+#pragma unroll
+    for (int e = 0; e < N_EDGES; ++e) cnt[e] += p[e];
+  }
+  const int k = row / N, n = row % N;
+  refine_update(cnt, stats_in + (size_t)k * 3 * N, stats_out + (size_t)k * 3 * N, n, N,
+                top_k);
+}
+
+// ---------------------------------------------------------------------------
 
 constexpr size_t kCandidatesSmem = (TN * KS + KC * KS + TN * C_BINS) * sizeof(float);
 constexpr size_t kRefineSmem =
@@ -1121,17 +1298,17 @@ int set_smem(Kernel kernel, size_t bytes) {
 // Plain C interface (loaded with ctypes). Each function launches on
 // `stream`, does not synchronise, and returns cudaGetLastError() after
 // the launch (0 = success). S is the number of M ranges; the workspaces
-// are (S, K, N, 4, 256) fp32 for phase A and (S, K, N, 512) plus
-// (S, K, N) fp32 for phase B.
+// are (S, K, N, 4, 256) fp32 for phase A, (S, K, N, 7) int32 for refine
+// and (S, K, N, 512) plus (S, K, N) fp32 for phase B.
 extern "C" {
 
 int mr_candidates_f32(const void* q, const void* keys, long long stride_k,
                       const void* mask, void* stats, int K, int N, int M,
                       int top_k, void* stream) {
-  if (int e = set_smem(candidates_kernel<float>, kCandidatesSmem)) return e;
+  if (int e = set_smem(candidates_kernel, kCandidatesSmem)) return e;
   dim3 grid((N + TN - 1) / TN, K);
-  candidates_kernel<float><<<grid, THREADS, kCandidatesSmem,
-                             static_cast<cudaStream_t>(stream)>>>(
+  candidates_kernel<<<grid, THREADS, kCandidatesSmem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
       static_cast<const float*>(mask), static_cast<float*>(stats), N, M, top_k);
   return (int)cudaGetLastError();
@@ -1159,24 +1336,37 @@ int mr_candidates_merge(const void* ws, void* stats, int K, int N, int S,
   return (int)cudaGetLastError();
 }
 
-int mr_refine(const void* q, const void* keys, long long stride_k,
-              const void* mask, const void* stats_in, void* stats_out, int K,
-              int N, int M, int top_k, int bf16_bank, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
+int mr_refine_f32(const void* q, const void* keys, long long stride_k,
+                  const void* mask, const void* stats_in, void* stats_out, int K,
+                  int N, int M, int top_k, void* stream) {
+  if (int e = set_smem(refine_kernel, kRefineSmem)) return e;
   dim3 grid((N + TN - 1) / TN, K);
-  if (bf16_bank) {
-    if (int e = set_smem(refine_kernel<bf16>, kRefineSmem)) return e;
-    refine_kernel<bf16><<<grid, THREADS, kRefineSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const bf16*>(keys), stride_k,
-        static_cast<const float*>(mask), static_cast<const float*>(stats_in),
-        static_cast<float*>(stats_out), N, M, top_k);
-  } else {
-    if (int e = set_smem(refine_kernel<float>, kRefineSmem)) return e;
-    refine_kernel<float><<<grid, THREADS, kRefineSmem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
-        static_cast<const float*>(mask), static_cast<const float*>(stats_in),
-        static_cast<float*>(stats_out), N, M, top_k);
-  }
+  refine_kernel<<<grid, THREADS, kRefineSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
+      static_cast<const float*>(mask), static_cast<const float*>(stats_in),
+      static_cast<float*>(stats_out), N, M, top_k);
+  return (int)cudaGetLastError();
+}
+
+int mr_refine_bf16(const void* q_hi, const void* q_lo, const void* keys,
+                   long long stride_k, const void* mask, const void* stats_in,
+                   void* ws, int K, int N, int M, int S, void* stream) {
+  if (int e = set_smem(refine_bf16_kernel, kRefineBf16Smem)) return e;
+  dim3 grid((N + RF_ROWS - 1) / RF_ROWS, S, K);
+  refine_bf16_kernel<<<grid, RF_THREADS, kRefineBf16Smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
+      static_cast<const bf16*>(keys), stride_k, static_cast<const float*>(mask),
+      static_cast<const float*>(stats_in), static_cast<int*>(ws), N, M, S);
+  return (int)cudaGetLastError();
+}
+
+int mr_refine_merge(const void* ws, const void* stats_in, void* stats_out, int K,
+                    int N, int S, int top_k, void* stream) {
+  refine_merge_kernel<<<(K * N + THREADS - 1) / THREADS, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ws), static_cast<const float*>(stats_in),
+      static_cast<float*>(stats_out), K, N, S, top_k);
   return (int)cudaGetLastError();
 }
 

@@ -33,7 +33,9 @@ _SIGNATURES = {
     "mr_candidates_f32": [_VP, _VP, _LL, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_candidates_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_candidates_merge": [_VP, _VP, _I, _I, _I, _I, _VP],
-    "mr_refine": [_VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    "mr_refine_f32": [_VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mr_refine_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mr_refine_merge": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_readout_f32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _I,
                        _VP],
     "mr_readout_bf16": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _I,
@@ -43,17 +45,21 @@ _SIGNATURES = {
 
 
 class KernelLibrary:
-    """The loaded kernel library plus what its build reported."""
+    """The loaded kernel library plus what its build reported. `missing`
+    names the functions of the C interface the library does not export
+    (an older source, built for an A/B); the package's library has all."""
 
     def __init__(self, path: Path, build_seconds: float, log: str):
         self.path = path
         self.build_seconds = build_seconds  # 0.0 when the build was cached
         self.log = log                      # nvcc/ptxas output of the build
         self.lib = ctypes.CDLL(str(path))
+        self.missing = [name for name in _SIGNATURES if not hasattr(self.lib, name)]
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(self.lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            if name not in self.missing:
+                fn = getattr(self.lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
 
 
 def _find_nvcc() -> str:
@@ -99,6 +105,10 @@ def load_library() -> KernelLibrary:
     """Build (once per source hash) and load the kernel library, once per
     process: every kernel launch asks for it, and hashing the sources
     each time would cost the host ~0.1 ms per memory read. Raises
-    RuntimeError when nvcc is missing or the build fails."""
-    return build_library([CSRC / s for s in SOURCES],
-                         BUILD_DIR / f"libmivos_kernels_{source_hash()}.so")
+    RuntimeError when nvcc is missing, the build fails or the library
+    lacks a function of the C interface."""
+    lib = build_library([CSRC / s for s in SOURCES],
+                        BUILD_DIR / f"libmivos_kernels_{source_hash()}.so")
+    if lib.missing:
+        raise RuntimeError(f"{lib.path} does not export {lib.missing}")
+    return lib

@@ -25,15 +25,15 @@ max, refine upper bound.
 The affinity. For fp32 banks it is the full-fp32 product of the scaled
 query. For bf16 banks it is the JAX kernel's split (`_affinity`): q_hi =
 bf16(q), q_lo = bf16(q - q_hi), a = q_hi.k + q_lo.k, i.e. the product of
-q~ = q_hi + q_lo (exact in fp32) with the keys up to fp32 rounding. The
-phase A and B kernels run it as two bf16 tensor-core passes, the plain
-version as two fp32 products summed (as `_affinity` sums its passes), and
-the refine kernel as fp32 FMAs of q~, so that all phases rank the same
-affinities. `read_query` makes the query of one read once.
+q_hi + q_lo (exact in fp32) with the keys up to fp32 rounding. The
+kernels of all three phases run it as two bf16 tensor-core passes into
+one fp32 accumulator, so that all phases rank the same affinities; the
+plain version as two fp32 products summed (as `_affinity` sums its
+passes). `read_query` makes the query of one read once.
 
-On bf16 banks phases A and B split the memory axis into S ranges cut at
-multiples of 256 keys (`split_count`), write per-range partials to a
-workspace and merge them in a second kernel, in a fixed order of ranges.
+On bf16 banks every phase splits the memory axis into S ranges cut at
+multiples of 256 keys (`split_count`), writes per-range partials to a
+workspace and merges them in a second kernel, in a fixed order of ranges.
 
 Each phase has a kernel wrapper (`*_cuda`: CUDA tensors only, raises on
 anything else, counts its launches) and a plain version (`*_plain`:
@@ -60,15 +60,18 @@ N_EDGES = 7
 REFINE_CAP = 0.15
 CK, CV = 128, 512
 SPLIT_ALIGN = C_BINS   # M ranges of the bf16 kernels start at multiples of this
-CAND_ROWS = 32         # query rows per phase-A block (bf16 banks)
-READ_ROWS = 64         # query rows per phase-B block (bf16 banks)
-MAX_SPLITS = {"candidates": 4, "readout": 8}
+# Per bf16 kernel (csrc/memory_read.cu): query rows per block, blocks an
+# SM holds at once (its shared memory), most M ranges.
+BLOCK_ROWS = {"candidates": 32, "refine": 64, "readout": 64}
+SM_BLOCKS = {"candidates": 1, "refine": 3, "readout": 1}
+MAX_SPLITS = {"candidates": 4, "refine": 8, "readout": 8}
 FULL_WAVES = 0.85      # split_count's target share of full waves
 
 # Launches of each kernel since the last reset: a wrapper adds one
 # exactly where it launches its kernel; the plain versions never count.
 _LAUNCHES: Dict[str, int] = {"candidates": 0, "candidates_merge": 0,
-                             "refine": 0, "readout": 0, "readout_merge": 0}
+                             "refine": 0, "refine_merge": 0, "readout": 0,
+                             "readout_merge": 0}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -95,20 +98,23 @@ def split_query(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 class ReadQuery(NamedTuple):
-    """The query of one read. `q` is the (N, CK) fp32 query: the scaled
-    query for fp32 banks, q_hi + q_lo for bf16 banks, whose phase A and B
-    kernels take the split itself (`hi`, `lo`; None for fp32 banks)."""
-    q: torch.Tensor
+    """The query of one read: for fp32 banks `q`, the (N, CK) scaled fp32
+    query; for bf16 banks its split `hi`, `lo` (each (N, CK) bf16), and
+    `q` is None."""
+    q: Optional[torch.Tensor]
     hi: Optional[torch.Tensor] = None
     lo: Optional[torch.Tensor] = None
+
+    @property
+    def rows(self) -> int:
+        return (self.q if self.hi is None else self.hi).shape[0]
 
 
 def read_query(query_k: torch.Tensor, bank_dtype: torch.dtype) -> ReadQuery:
     q = scaled_query(query_k)
     if bank_dtype != torch.bfloat16:
         return ReadQuery(q)
-    hi, lo = split_query(q)
-    return ReadQuery(hi.to(torch.float32) + lo.to(torch.float32), hi, lo)
+    return ReadQuery(None, *split_query(q))
 
 
 def additive_mask(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -119,15 +125,15 @@ def additive_mask(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return torch.where(valid, zero, torch.full_like(zero, NEG_INF)).contiguous()
 
 
-def split_count(base_blocks: int, m: int, sms: int, max_splits: int) -> int:
+def split_count(base_blocks: int, m: int, slots: int, max_splits: int) -> int:
     """Number S of M ranges (each at least one 256-key slice) for a grid
-    of `base_blocks` (object, row tile) blocks at one block per SM: the
-    smallest S whose waves over `sms` SMs are FULL_WAVES full, else the
-    S with the fullest waves."""
+    of `base_blocks` (object, row tile) blocks over `slots` block slots
+    (SMs times the blocks one SM holds): the smallest S whose waves are
+    FULL_WAVES full, else the S with the fullest waves."""
     best, best_fill = 1, 0.0
     for s in range(1, min(-(-m // SPLIT_ALIGN), max_splits) + 1):
         blocks = base_blocks * s
-        fill = blocks / (-(-blocks // sms) * sms)
+        fill = blocks / (-(-blocks // slots) * slots)
         if fill >= FULL_WAVES:
             return s
         if fill > best_fill:
@@ -188,19 +194,39 @@ def candidates_plain(aff: torch.Tensor, top_k: int) -> torch.Tensor:
     return torch.stack([lo, rowmax, rowmax], dim=1)
 
 
-def refine_plain(aff: torch.Tensor, stats: torch.Tensor,
-                 top_k: int) -> torch.Tensor:
-    """One refine pass: exact counts at N_EDGES edges above the threshold."""
-    th, mx, ub = stats.unbind(1)
-    delta = ((ub - th).clamp(max=REFINE_CAP) / float(N_EDGES)).clamp(min=1e-7)
-    counts = torch.stack(
+def _refine_delta(th: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
+    return ((ub - th).clamp(max=REFINE_CAP) / float(N_EDGES)).clamp(min=1e-7)
+
+
+def refine_counts_plain(aff: torch.Tensor, stats: torch.Tensor) -> torch.Tensor:
+    """Refine's counts on a masked affinity (K, N, M), or on any range of
+    its memory axis: (K, N, N_EDGES) int64, the entries reaching each edge
+    th + (i+1) * delta over [th, th + min(ub - th, REFINE_CAP)]. Counts of
+    disjoint ranges add up to the counts of their union."""
+    th, _, ub = stats.unbind(1)
+    delta = _refine_delta(th, ub)
+    return torch.stack(
         [(aff >= (th + float(i + 1) * delta)[..., None]).sum(-1)
          for i in range(N_EDGES)], dim=-1)
+
+
+def refine_update_plain(counts: torch.Tensor, stats: torch.Tensor,
+                        top_k: int) -> torch.Tensor:
+    """Refine's counts -> new (K, 3, N) stats: th rises to the highest edge
+    still counting >= top_k entries, ub falls to the next edge up."""
+    th, mx, ub = stats.unbind(1)
+    delta = _refine_delta(th, ub)
     nok = (counts >= top_k).sum(-1).to(torch.float32)
     th_new = th + nok * delta
     ub_new = torch.where(nok < float(N_EDGES),
                          torch.minimum(ub, th_new + delta), ub)
     return torch.stack([th_new, mx, ub_new], dim=1)
+
+
+def refine_plain(aff: torch.Tensor, stats: torch.Tensor,
+                 top_k: int) -> torch.Tensor:
+    """One refine pass: exact counts at N_EDGES edges above the threshold."""
+    return refine_update_plain(refine_counts_plain(aff, stats), stats, top_k)
 
 
 def readout_plain(aff: torch.Tensor, mem_v: torch.Tensor,
@@ -264,15 +290,17 @@ def _check_dense(name: str, x: Optional[torch.Tensor], shape, device,
 def _common(rq: ReadQuery, mem_k: torch.Tensor, mask, top_k: int):
     k, m = mem_k.shape[:2]
     _check_bank("mem_k", mem_k, k, m, CK)
-    n = rq.q.shape[0]
-    _check_dense("q", rq.q, (n, CK), mem_k.device)
+    bf16 = mem_k.dtype == torch.bfloat16
+    if (rq.hi is None or rq.lo is None) if bf16 else rq.q is None:
+        raise ValueError(f"a {mem_k.dtype} bank needs read_query(query_k, "
+                         f"{mem_k.dtype})")
+    n = rq.rows
     _check_dense("mask", mask, (m,), mem_k.device)
-    if mem_k.dtype == torch.bfloat16:
-        if rq.hi is None or rq.lo is None:
-            raise ValueError("bf16 banks need the split query: read_query("
-                             "query_k, torch.bfloat16)")
+    if bf16:
         _check_dense("q_hi", rq.hi, (n, CK), mem_k.device, torch.bfloat16)
         _check_dense("q_lo", rq.lo, (n, CK), mem_k.device, torch.bfloat16)
+    else:
+        _check_dense("q", rq.q, (n, CK), mem_k.device)
     if m < 1 or n < 1 or top_k < 1:
         raise ValueError(f"need M, N, top_k >= 1 (M={m}, N={n}, "
                          f"top_k={top_k})")
@@ -306,13 +334,14 @@ def _sm_count(device: torch.device) -> int:
 
 
 def range_blocks(kernel: str, k: int, n: int) -> int:
-    """Blocks of one M range of the bf16 `kernel` ("candidates" or
-    "readout") for K objects and N query rows."""
-    return k * -(-n // (CAND_ROWS if kernel == "candidates" else READ_ROWS))
+    """Blocks of one M range of the bf16 `kernel` ("candidates", "refine"
+    or "readout") for K objects and N query rows."""
+    return k * -(-n // BLOCK_ROWS[kernel])
 
 
-def _splits(kernel: str, k: int, n: int, m: int, device: torch.device) -> int:
-    return split_count(range_blocks(kernel, k, n), m, _sm_count(device),
+def kernel_splits(kernel: str, k: int, n: int, m: int, sms: int) -> int:
+    """The number of M ranges the bf16 `kernel` takes on a card of `sms` SMs."""
+    return split_count(range_blocks(kernel, k, n), m, sms * SM_BLOCKS[kernel],
                        MAX_SPLITS[kernel])
 
 
@@ -330,7 +359,7 @@ def candidates_cuda(rq: ReadQuery, mem_k: torch.Tensor,
                 rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
                 stats.data_ptr(), k, n, m, top_k, _stream(dev)))
             return stats
-        splits = _splits("candidates", k, n, m, dev)
+        splits = kernel_splits("candidates", k, n, m, _sm_count(dev))
         ws = torch.empty((splits, k, n, 4, C_BINS), dtype=torch.float32,
                          device=dev)
         _launch("candidates", _lib().mr_candidates_bf16(
@@ -345,15 +374,28 @@ def candidates_cuda(rq: ReadQuery, mem_k: torch.Tensor,
 def refine_cuda(rq: ReadQuery, mem_k: torch.Tensor,
                 mask: Optional[torch.Tensor], stats: torch.Tensor,
                 top_k: int) -> torch.Tensor:
-    """One refine-pass kernel: (K, 3, N) stats -> new (K, 3, N) stats."""
+    """One refine pass: (K, 3, N) stats -> new (K, 3, N) stats. bf16
+    banks launch the split-M counting kernel and its merge; fp32 banks
+    one kernel."""
     k, n, m = _common(rq, mem_k, mask, top_k)
-    _check_dense("stats", stats, (k, 3, n), mem_k.device)
+    dev = mem_k.device
+    _check_dense("stats", stats, (k, 3, n), dev)
     out = torch.empty_like(stats)
-    with torch.cuda.device(mem_k.device):
-        _launch("refine", _lib().mr_refine(
-            rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
-            stats.data_ptr(), out.data_ptr(), k, n, m, top_k,
-            int(mem_k.dtype == torch.bfloat16), _stream(mem_k.device)))
+    with torch.cuda.device(dev):
+        if mem_k.dtype != torch.bfloat16:
+            _launch("refine", _lib().mr_refine_f32(
+                rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
+                stats.data_ptr(), out.data_ptr(), k, n, m, top_k, _stream(dev)))
+            return out
+        splits = kernel_splits("refine", k, n, m, _sm_count(dev))
+        ws = torch.empty((splits, k, n, N_EDGES), dtype=torch.int32, device=dev)
+        _launch("refine", _lib().mr_refine_bf16(
+            rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
+            mem_k.stride(0), _ptr(mask), stats.data_ptr(), ws.data_ptr(), k, n,
+            m, splits, _stream(dev)))
+        _launch("refine_merge", _lib().mr_refine_merge(
+            ws.data_ptr(), stats.data_ptr(), out.data_ptr(), k, n, splits,
+            top_k, _stream(dev)))
     return out
 
 
@@ -377,7 +419,7 @@ def readout_cuda(rq: ReadQuery, mem_k: torch.Tensor, mem_v: torch.Tensor,
                 mem_v.data_ptr(), mem_v.stride(0), _ptr(mask),
                 stats.data_ptr(), out.data_ptr(), k, n, m, _stream(dev)))
             return out
-        splits = _splits("readout", k, n, m, dev)
+        splits = kernel_splits("readout", k, n, m, _sm_count(dev))
         ws_acc = torch.empty((splits, k, n, CV), dtype=torch.float32,
                              device=dev)
         ws_sum = torch.empty((splits, k, n), dtype=torch.float32, device=dev)

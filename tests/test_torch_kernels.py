@@ -80,6 +80,7 @@ def test_kernel_matches_plain(case, dtype, n_refine):
     assert after["candidates"] == before["candidates"] + 1
     assert after["candidates_merge"] == before["candidates_merge"] + merges
     assert after["refine"] == before["refine"] + n_refine
+    assert after["refine_merge"] == before["refine_merge"] + n_refine * merges
     assert after["readout"] == before["readout"] + 1
     assert after["readout_merge"] == before["readout_merge"] + merges
     ref = cmr.memory_read_threshold_plain(mk, mv, q, top_k=50, valid=valid,
@@ -126,10 +127,10 @@ SPLIT_CASES = [
 @pytest.mark.parametrize("case", SPLIT_CASES,
                          ids=lambda c: f"K{c[0]}-M{c[1]}-N{c[2]}")
 def test_split_kernels_match_plain_and_repeat_bitwise(case):
-    """bf16 banks: phase A and B kernels alone against their plain phases
-    on the same query split, over the M ranges the wrapper picks; two
-    calls give equal bits (the merges sum in a fixed order); each call
-    launches each kernel and its merge once."""
+    """bf16 banks: the phase A, refine and phase B kernels alone against
+    their plain phases on the same query split, over the M ranges the
+    wrapper picks; two calls give equal bits (the merges sum in a fixed
+    order); each call launches each kernel and its merge once."""
     k, m, n, live = case
     rng = np.random.RandomState(m)
     mk, mv, q = _to_cuda(*_peaky(rng, k, m, n), torch.bfloat16)
@@ -139,24 +140,55 @@ def test_split_kernels_match_plain_and_repeat_bitwise(case):
     aff = cmr.read_affinity(rq, mk, mask)
     before = cmr.launch_counts()
     st = cmr.candidates_cuda(rq, mk, mask, 50)
+    refined = cmr.refine_cuda(rq, mk, mask, st, 50)
     out = cmr.readout_cuda(rq, mk, mv, mask, st)
     torch.cuda.synchronize()
     after = cmr.launch_counts()
     assert {name: after[name] - before[name] for name in after} == {
-        "candidates": 1, "candidates_merge": 1, "refine": 0, "readout": 1,
-        "readout_merge": 1}
+        "candidates": 1, "candidates_merge": 1, "refine": 1, "refine_merge": 1,
+        "readout": 1, "readout_merge": 1}
     # 1e-3 nats as chip_smoke's gate, plus fp32 rounding at these inputs'
     # affinities (up to ~900 at M = 21060, where one ulp is 6e-5): the
     # tensor cores add the products in another order than cuBLAS.
     plain = cmr.candidates_plain(aff, 50)
     assert ((st - plain).abs() <= 1e-3 + 4e-6 * plain.abs()).all()
+    plain = cmr.refine_plain(aff, st, 50)
+    assert ((refined - plain).abs() <= 1e-3 + 4e-6 * plain.abs()).all()
     ref = cmr.readout_plain(aff, mv, st)
     scale = ref.abs().mean().item()
     assert torch.isfinite(out).all()
     assert (out - ref).abs().mean().item() <= 1e-4 * scale
     assert (out - ref).abs().max().item() < 0.3 * scale
     assert torch.equal(cmr.candidates_cuda(rq, mk, mask, 50), st)
+    assert torch.equal(cmr.refine_cuda(rq, mk, mask, st, 50), refined)
     assert torch.equal(cmr.readout_cuda(rq, mk, mv, mask, st), out)
+
+
+def _bin_collisions(rng):
+    """tests/test_pallas_memory_read.py:76-83: 60 strong matches for every
+    query at a stride of 256 keys, all in one partition-1 bin."""
+    mk = rng.randn(1, 16384, 128).astype(np.float32) * 0.02
+    q = rng.randn(64, 128).astype(np.float32)
+    hot = np.arange(60) * 256 + 7
+    mk[0, hot] = (q.mean(0) / np.linalg.norm(q.mean(0)) * 4.0
+                  + rng.randn(60, 128).astype(np.float32) * 0.05)
+    return mk, rng.randn(1, 16384, 512).astype(np.float32), q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_refine_passes_tighten_on_bin_collisions(dtype):
+    """The input the refine passes exist for: phase A's bins undercount,
+    and each pass brings the read closer to the exact top-k read, as the
+    JAX kernel's test asserts (tests/test_pallas_memory_read.py:94-100)."""
+    mk, mv, q = _to_cuda(*_bin_collisions(np.random.RandomState(0)), dtype)
+    exact = memory_read(mk, mv, q, top_k=50, backend="exact")
+    full = memory_read(mk, mv, q, top_k=None, backend="exact")
+    errs = [(cmr.memory_read_threshold_cuda(mk, mv, q, top_k=50, n_refine=nr)
+             - exact).abs().mean().item() for nr in (0, 1, 2)]
+    assert errs[0] < 0.8 * (full - exact).abs().mean().item(), errs
+    assert errs[1] < 0.75 * errs[0], errs
+    assert errs[2] < errs[1], errs
 
 
 def test_strided_bank_prefix_view():

@@ -225,10 +225,11 @@ def test_bf16_split_affinity_matches_pallas_affinity():
                     for i in range(2)])
     rq = cmr.read_query(_t(q), torch.bfloat16)
     assert rq.hi.dtype == rq.lo.dtype == torch.bfloat16
+    assert rq.q is None and rq.rows == 90
     out = cmr.read_affinity(rq, _t(mk).to(torch.bfloat16), None).numpy()
     assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
     # q_hi + q_lo is the query to ~2^-17 relative; fp32 banks keep q itself.
-    assert torch.allclose(rq.q, qs, rtol=2 ** -16, atol=0)
+    assert torch.allclose(rq.hi.float() + rq.lo.float(), qs, rtol=2 ** -16, atol=0)
     assert cmr.read_query(_t(q), torch.float32).q.equal(qs)
 
 
@@ -320,13 +321,76 @@ def test_split_m_top2_bins_merge_exactly(m):
         assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("m,live,top_k", [
+    (2500, 1700, 50),    # M ragged against 256; at S = 4 the last range
+                         # [1792, 2500) is wholly masked
+    (2049, None, 50),    # one key in the last 256-key slice
+    (1500, 1000, 1200),  # top_k >= the live count
+])
+def test_refine_counts_over_split_ranges_sum_to_refine_plain(m, live, top_k, splits):
+    """Refine over the 256-aligned M ranges of csrc's split_range, as the
+    bf16 kernel and its merge split it: the ranges' counts summed, then
+    the update, equal refine_plain bit for bit, for two passes on the JAX
+    kernel's affinity."""
+    mk, _, q = _peaky(11, k=2, m=m, n=70)
+    valid = None if live is None else np.arange(m) < live
+    aff = _t(_pallas_split_affinity(q, mk, valid))
+    stats = cmr.candidates_plain(aff, top_k)
+    cuts = _split_cuts(m, splits, 256)
+    assert all(j0 < j1 for j0, j1 in cuts) and cuts[-1][1] == m
+    for _ in range(2):
+        counts = sum(cmr.refine_counts_plain(aff[..., j0:j1], stats)
+                     for j0, j1 in cuts)
+        refined = cmr.refine_update_plain(counts, stats, top_k)
+        assert torch.equal(refined, cmr.refine_plain(aff, stats, top_k))
+        stats = refined
+
+
+def _bin_collisions(seed):
+    """tests/test_pallas_memory_read.py:76-83: 60 strong matches for every
+    query at a stride of 256 keys, so all share one partition-1 bin."""
+    rng = np.random.RandomState(seed)
+    mk = rng.randn(1, 16384, 128).astype(np.float32) * 0.02
+    q = rng.randn(64, 128).astype(np.float32)
+    hot = np.arange(60) * 256 + 7
+    mk[0, hot] = (q.mean(0) / np.linalg.norm(q.mean(0)) * 4.0
+                  + rng.randn(60, 128).astype(np.float32) * 0.05)
+    return mk, rng.randn(1, 16384, 512).astype(np.float32), q
+
+
+@pytest.mark.parametrize("bf16", [False, True], ids=["fp32", "bf16"])
+def test_threshold_plain_matches_pallas_on_bin_collisions(bf16):
+    """The plain read with two refine passes against the Pallas kernel on
+    the input refine exists for (phase A's bins undercount)."""
+    mk, mv, q = _bin_collisions(12)
+    jk, jv = jnp.asarray(mk), jnp.asarray(mv)
+    tk, tv = _t(mk), _t(mv)
+    if bf16:
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
+    ref = np.asarray(memory_read_pallas(jk, jv, jnp.asarray(q), top_k=50,
+                                        interpret=True, n_refine=2))
+    out = cmr.memory_read_threshold_plain(tk, tv, _t(q), top_k=50,
+                                          n_refine=2).numpy()
+    err = np.abs(out - ref)   # the limits of the peaky-input test above
+    assert err.max() <= 2e-3, err.max()
+    assert err.mean() <= 1e-4, err.mean()
+
+
 def test_split_count_fills_the_waves():
     # The session's timing shape (K = 3, N = 1620) on 132 SMs: 78 readout
-    # blocks of 64 rows and 153 candidates blocks of 32 rows -> 3 ranges.
+    # blocks of 64 rows and 153 candidates blocks of 32 rows -> 3 ranges;
+    # 78 refine blocks of 64 rows, three an SM -> 5 ranges.
     assert cmr.range_blocks("readout", 3, 1620) == 78
     assert cmr.range_blocks("candidates", 3, 1620) == 153
+    assert cmr.range_blocks("refine", 3, 1620) == 78
     assert cmr.split_count(78, 21060, 132, 8) == 3
     assert cmr.split_count(153, 21060, 132, 4) == 3
+    assert cmr.split_count(78, 21060, 3 * 132, 8) == 5
+    assert [cmr.kernel_splits(name, 3, 1620, 21060, 132)
+            for name in ("candidates", "refine", "readout")] == [3, 5, 3]
+    assert cmr.kernel_splits("refine", 3, 1620, 1620, 132) == 5   # 7 slices
     assert cmr.split_count(1, 200, 132, 8) == 1        # one 256-key slice
     assert cmr.split_count(1, 2049, 132, 8) == 8       # capped
     for base in range(1, 400, 7):
