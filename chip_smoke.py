@@ -17,12 +17,14 @@ Phases (any failure exits non-zero before the final line):
              each kernel alone against its plain phase; the iid-gaussian
              regime at M = 20480, fp32 and bf16, n_refine 0, 1 and 2,
              reported only; CUDA event timings of each kernel wrapper
-             (kernel and merge), its plain phase and its bound at
-             M = 1620, 11340 and 21060 (the smallest, middle and largest
-             bank of a bench round), one line for bf16 banks (with the
-             whole read against the plain and exact reads at M = 21060,
-             and two refine calls that must give equal bits) and one for
-             fp32 banks. Bound: the tensor-core FLOPs at the bf16 peak
+             (kernel and merge; on fp32 banks on the read's bf16 planes), its
+             plain phase and its bound at M = 1620, 11340 and 21060 (the
+             smallest, middle and largest bank of a bench round), one
+             line for bf16 banks and one for fp32 banks (with the whole
+             read against the plain and exact reads at M = 21060, and two
+             refine calls that must give equal bits); on fp32 banks also
+             the planes of keys and values, made once a read. Bound: the
+             tensor-core FLOPs at the bf16 peak
              or the bytes at the memory rate, whichever is larger (see
              bound_ms: the affinity as the JAX kernel's bf16 passes, two
              for bf16 keys and three for fp32 keys, w.V as one bf16 pass
@@ -33,10 +35,12 @@ Phases (any failure exits non-zero before the final line):
              frames 480x854, K=3, top_k=50, mem_freq=5, bf16 convs and
              bank; one warm and 3 measured rounds (frames/s); then a
              second interaction on frame 59 (fusion pass) and one round
-             with read_refine=1, all with cuDNN autotune on. The launch
-             counters, zeroed just before, must equal the number of
-             memory reads per kernel (each merge once per read on bf16
-             banks).
+             with read_refine=1, all with cuDNN autotune on. Then the
+             same protocol with fp32 convs and bank: one warm and one
+             measured round (frames/s), and one with read_refine=1. The
+             launch counters, zeroed just before each of the two paths'
+             measured rounds, must equal the reads times each kernel's
+             launches per read (memory_read.launches_per_read).
   5. s2m     S2MController.interact at 480x854, bf16, hard aggregate:
              CUDA-event latency for K = 1, 2, 3, cuDNN autotune off
              with deterministic plans (as in the davis phase) and
@@ -56,11 +60,12 @@ Phases (any failure exits non-zero before the final line):
              (K, N, M) those reads had, on banks laid out as the bank's
              live prefix; then a small fp32 lockstep: the same robot
              scribbles through an `auto` and an `exact` processor.
-The line before the last is {"kernels": [...]}, one entry per TPU
-kernel: "launches" sums its CUDA launches (kernel and merge) over the
-session and davis runs, "max_abs_err" is the worst of both gates, "ms",
-"plain_ms" and "bound_ms" are at M = 21060 bf16, and "fp32" holds the
-same at M = 21060 fp32. The last line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, one entry per kernel
+family of a bank dtype (KERNELS): "launches" sums its CUDA launches
+(kernel and merge) over its paths (bf16: the session's bf16 rounds and
+the davis run; fp32: the session's fp32 rounds), "max_abs_err" is the
+worst of the gates of its bank dtype, "ms", "plain_ms" and "bound_ms"
+are at M = 21060. The last line is {"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
@@ -96,14 +101,23 @@ MEASURED = 3
 DAVIS_T, DAVIS_ROUNDS, DAVIS_SEQS = 50, 8, ((101, 2), (102, 3))  # (seed, K)
 PROPAGATE_ON = (2, 5, 7)     # reference davis_processor.py:34
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
+# The Pallas code each phase's kernels replace: the three pallas_calls'
+# kernels, and the split of fp32 key tiles in `_affinity` that the
+# planes kernel takes out of phases A and B, once a read.
 REPLACES = {"candidates": "mivos_tpu/ops/pallas/memory_read.py:116",
             "refine": "mivos_tpu/ops/pallas/memory_read.py:221",
-            "readout": "mivos_tpu/ops/pallas/memory_read.py:284"}
-# The CUDA launches (launch-counter names) of each TPU kernel's counterpart
-# on a bf16 bank, and how many of each one read makes per refine pass.
-LAUNCHES = {"candidates": ("candidates", "candidates_merge"),
-            "refine": ("refine", "refine_merge"),
-            "readout": ("readout", "readout_merge")}
+            "readout": "mivos_tpu/ops/pallas/memory_read.py:284",
+            "hilo_planes": "mivos_tpu/ops/pallas/memory_read.py:108"}
+BF16, F32 = torch.bfloat16, torch.float32
+# One entry of the kernels line per kernel family: (name, phase, bank
+# dtype, the launch counters of its CUDA launches).
+KERNELS = (("candidates_bf16", "candidates", BF16, ("candidates_bf16", "candidates_merge")),
+           ("refine_bf16", "refine", BF16, ("refine_bf16", "refine_merge")),
+           ("readout_bf16", "readout", BF16, ("readout_bf16", "readout_merge")),
+           ("candidates_f32", "candidates", F32, ("candidates_f32", "candidates_merge")),
+           ("refine_f32", "refine", F32, ("refine_f32",)),
+           ("readout_f32", "readout", F32, ("readout_f32", "readout_merge")),
+           ("hilo_planes", "hilo_planes", F32, ("hilo_planes",)))
 TIMING_M = (1620, 11340, 21060)
 # NVIDIA H100 SXM peaks at 700 W (data sheet): dense bf16 tensor cores, HBM3.
 PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
@@ -232,14 +246,15 @@ def gate_read(mk, mv, q, valid):
         check(rep["vs_exact_mean"] < 1e-3 * scale, f"kernel vs exact {rep}")
         check(rep["vs_exact_max"] < 0.3 * scale, f"kernel vs exact {rep}")
     del exact, out, plain
-    rq = cmr.read_query(q, mk.dtype)
+    rq = cmr.read_query(q)
     mask = cmr.additive_mask(valid)
     aff = cmr.read_affinity(rq, mk, mask)
-    st_k = cmr.candidates_cuda(rq, mk, mask, TOP_K)
+    planes = None if mk.dtype == BF16 else cmr.bank_planes_cuda(mk, mv)
+    st_k = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
     st_p = cmr.candidates_plain(aff, TOP_K)
     ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K)
     ref_p = cmr.refine_plain(aff, st_k, TOP_K)
-    out_k = cmr.readout_cuda(rq, mk, mv, mask, st_k)
+    out_k = cmr.readout_cuda(rq, mk, mv, mask, st_k, planes)
     out_p = cmr.readout_plain(aff, mv, st_k)
     errs = {"candidates": (st_k - st_p).abs().max().item(),
             "refine": (ref_k - ref_p).abs().max().item(),
@@ -248,6 +263,11 @@ def gate_read(mk, mv, q, valid):
                   "dtype": str(mk.dtype)[6:], "per_kernel_max_abs_err": errs,
                   "readout_mean_abs_err": (out_k - out_p).abs().mean().item(),
                   "readout_scale": out_p.abs().mean().item()}
+    if planes is not None:   # both round to nearest even: equal bits
+        errs["hilo_planes"] = max(
+            (a.float() - b.float()).abs().max().item() for a, b in
+            zip(planes, cmr.hilo_planes_plain(mk) + cmr.hilo_planes_plain(mv)))
+        check(errs["hilo_planes"] == 0.0, f"bf16 planes vs plain {kernel_rep}")
     # Thresholds in nats: affinity rounding (fp32 FMA or tensor-core
     # accumulation order) may move a bisection step only where a bin value
     # sits within ~1e-6 of a midpoint, i.e. at the last steps' ~1e-5
@@ -260,8 +280,14 @@ def gate_read(mk, mv, q, valid):
     return reps, kernel_rep
 
 
-def worst_errs(*errs):
-    return {name: max(e[name] for e in errs) for name in REPLACES}
+def worst_errs(reps):
+    """Each kernel's worst error over gate reports, per bank dtype."""
+    worst = {}
+    for rep in reps:
+        by_name = worst.setdefault(rep["dtype"], {})
+        for name, err in rep["per_kernel_max_abs_err"].items():
+            by_name[name] = max(by_name.get(name, 0.0), err)
+    return worst
 
 
 def phase_gate(dev):
@@ -274,17 +300,17 @@ def phase_gate(dev):
     n16 = (-(-RH // 16)) * (-(-RW // 16))   # 30 * 54 = 1620 at 480p
     check(tuple(q.shape) == (n16, 128), f"query shape {tuple(q.shape)}")
     log(f"gate banks: M = {m_all // 2} and {m_all}, N = {q.shape[0]}")
-    kernel_errs = []
+    kernel_reps = []
     for m in (m_all // 2, m_all):
         valid = torch.arange(m, device=dev) < m - TAIL
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (F32, BF16):
             reps, kernel_rep = gate_read(mk_all[:, :m].to(dtype).contiguous(),
                                          mv_all[:, :m].to(dtype).contiguous(),
                                          q, valid)
             for rep in reps + [kernel_rep]:
                 log(json.dumps(rep))
-            kernel_errs.append(kernel_rep["per_kernel_max_abs_err"])
-    errs = worst_errs(*kernel_errs)
+            kernel_reps.append(kernel_rep)
+    errs = worst_errs(kernel_reps)
     # iid-gaussian ties: reported, not gated (as in the JAX kernel check).
     rng = np.random.RandomState(0)
     gk, gv, gq = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
@@ -303,8 +329,7 @@ def phase_gate(dev):
                             "vs_exact_max": (out - exact).abs().max().item()}))
     del gk, gv, out, exact, plain
 
-    timing = {dtype: phase_timing(mk_all, mv_all, q, dtype)
-              for dtype in (torch.bfloat16, torch.float32)}
+    timing = {dtype: phase_timing(mk_all, mv_all, q, dtype) for dtype in (BF16, F32)}
     return errs, timing, (mk_all, mv_all, q)
 
 
@@ -316,7 +341,11 @@ def bound_ms(name, k, n, m, dtype):
     bf16 passes (`_affinity`, pallas/memory_read.py:102-113): two for
     bf16 keys, three for fp32 keys; the readout's w.V as one bf16 pass on
     bf16 banks and as three on fp32 banks (an fp32-accurate product from
-    bf16 passes, as the affinity's). Returns (ms, "operations" | "bytes")."""
+    bf16 passes, as the affinity's). "hilo_planes": the planes of one
+    read, fp32 keys and values read, two bf16 planes of each written.
+    Returns (ms, "operations" | "bytes")."""
+    if name == "hilo_planes":
+        return k * m * (cmr.CK + cmr.CV) * (4 + 2 + 2) / PEAK_BYTES_S * 1e3, "bytes"
     bf16 = dtype == torch.bfloat16
     passes, esize = (2, 2) if bf16 else (3, 4)
     flops = passes * 2 * k * n * m * cmr.CK
@@ -332,12 +361,14 @@ def bound_ms(name, k, n, m, dtype):
 
 
 def phase_timing(mk_all, mv_all, q, dtype):
-    """CUDA-event times of each kernel wrapper (kernel and merge), its
-    plain phase (affinity included) and its bound at M = TIMING_M, banks
-    of `dtype`, K = 3, N = 1620, the last TAIL slots invalid. bf16 banks
-    also: the whole read against the plain and exact reads at the largest
-    M, and two refine calls that must give equal bits. Prints one line;
-    returns {M: {...}}."""
+    """CUDA-event times of each kernel wrapper (kernel and merge; on fp32
+    banks on the read's planes, and the planes of keys and values, as one
+    read makes them), its plain phase (affinity included) and its bound
+    at M = TIMING_M, banks of
+    `dtype`, K = 3, N = 1620, the last TAIL slots invalid; two refine
+    calls that must give equal bits; at the largest M the whole read
+    against the plain and exact reads. Prints one line; returns
+    {M: {...}}."""
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bf16 = dtype == torch.bfloat16
@@ -346,33 +377,38 @@ def phase_timing(mk_all, mv_all, q, dtype):
         mk = mk_all[:, :m].to(dtype).contiguous()
         mv = mv_all[:, :m].to(dtype).contiguous()
         k, n = mk.shape[0], q.shape[0]
-        rq = cmr.read_query(q, dtype)
+        rq = cmr.read_query(q)
         valid = torch.arange(m, device=dev) < m - TAIL
         mask = cmr.additive_mask(valid)
-        st = cmr.candidates_cuda(rq, mk, mask, TOP_K)
+        planes = None if bf16 else cmr.bank_planes_cuda(mk, mv)
+        st = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
 
         def plain_phase(fn):
             return lambda: fn(cmr.read_affinity(rq, mk, mask))
 
-        ms = {"candidates": cuda_ms(lambda: cmr.candidates_cuda(rq, mk, mask, TOP_K)),
+        ms = {"candidates": cuda_ms(lambda: cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)),
               "refine": cuda_ms(lambda: cmr.refine_cuda(rq, mk, mask, st, TOP_K)),
-              "readout": cuda_ms(lambda: cmr.readout_cuda(rq, mk, mv, mask, st))}
+              "readout": cuda_ms(lambda: cmr.readout_cuda(rq, mk, mv, mask, st, planes))}
         plain_ms = {
             "candidates": cuda_ms(plain_phase(lambda a: cmr.candidates_plain(a, TOP_K)), 3, 1),
             "refine": cuda_ms(plain_phase(lambda a: cmr.refine_plain(a, st, TOP_K)), 3, 1),
             "readout": cuda_ms(plain_phase(lambda a: cmr.readout_plain(a, mv, st)), 3, 1)}
-        bounds = {name: bound_ms(name, k, n, m, dtype) for name in REPLACES}
+        if not bf16:
+            ms["hilo_planes"] = cuda_ms(lambda: cmr.bank_planes_cuda(mk, mv))
+            plain_ms["hilo_planes"] = cuda_ms(
+                lambda: (cmr.hilo_planes_plain(mk), cmr.hilo_planes_plain(mv)), 3, 1)
+        bounds = {name: bound_ms(name, k, n, m, dtype) for name in ms}
         rep = {"kernel_ms": ms, "plain_ms": plain_ms,
                "bound_ms": {name: b[0] for name, b in bounds.items()},
                "bound_by": {name: b[1] for name, b in bounds.items()},
                "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms}}
-        if bf16:
-            refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K)
-            rep["refine_repeats_bitwise"] = bool(torch.equal(
-                cmr.refine_cuda(rq, mk, mask, st, TOP_K), refined))
-            check(rep["refine_repeats_bitwise"], f"refine differs between calls at M = {m}")
-            rep["splits"] = {name: cmr.kernel_splits(name, k, n, m, sms) for name in REPLACES}
-        if bf16 and m == TIMING_M[-1]:
+        refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K)
+        rep["refine_repeats_bitwise"] = bool(torch.equal(
+            cmr.refine_cuda(rq, mk, mask, st, TOP_K), refined))
+        check(rep["refine_repeats_bitwise"], f"refine differs between calls at M = {m}")
+        rep["splits"] = {name: cmr.kernel_splits(name, k, n, m, sms)
+                         for name in ("candidates", "refine", "readout")}
+        if m == TIMING_M[-1]:
             rep.update({
                 "kernel_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
                     mk, mv, q, TOP_K, valid)),
@@ -403,20 +439,20 @@ def phase_gate_davis(banks, shapes):
     read with, on gate banks laid out as the bank's live prefix (no
     invalid slots, as there). Returns each kernel's worst error."""
     mk_all, mv_all, q = banks
-    kernel_errs, worst = [], {"vs_plain_mean": 0.0, "vs_exact_mean": 0.0,
+    kernel_reps, worst = [], {"vs_plain_mean": 0.0, "vs_exact_mean": 0.0,
                               "vs_exact_max": 0.0}
     for k, n, m in sorted(shapes):
         check(n == q.shape[0] and k <= mk_all.shape[0] and m <= mk_all.shape[1],
               f"DAVIS read shape {(k, n, m)} outside the gate banks "
               f"{tuple(mk_all.shape)}, N = {q.shape[0]}")
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (F32, BF16):
             reps, kernel_rep = gate_read(bank_prefix(mk_all, k, m, dtype),
                                          bank_prefix(mv_all, k, m, dtype), q, None)
-            kernel_errs.append(kernel_rep["per_kernel_max_abs_err"])
+            kernel_reps.append(kernel_rep)
             for rep in reps:
                 for key in worst:
                     worst[key] = max(worst[key], rep[key] / rep["readout_scale"])
-    errs = worst_errs(*kernel_errs)
+    errs = worst_errs(kernel_reps)
     log(json.dumps({"davis_gate_shapes_KNM": sorted(shapes),
                     "dtypes": ["float32", "bfloat16"],
                     "worst_over_readout_scale": worst,
@@ -488,15 +524,10 @@ def session_invariants(core, labels):
 
 
 def check_read_launches(counts_before, reads, read_refine, bank_dtype):
-    """Each memory read launches candidates and readout once, refine
-    read_refine times, and on bf16 banks each kernel's merge as often as
-    the kernel; return the counts now."""
+    """Every counter rose by `reads` times its launches per read; return
+    the counts now."""
     got = cmr.launch_counts()
-    merges = int(bank_dtype == torch.bfloat16)
-    for name, per_read in (("candidates", 1), ("candidates_merge", merges),
-                           ("readout", 1), ("readout_merge", merges),
-                           ("refine", read_refine),
-                           ("refine_merge", read_refine * merges)):
+    for name, per_read in cmr.launches_per_read(bank_dtype, read_refine).items():
         check(got[name] - counts_before[name] == per_read * reads,
               f"{name}: {got[name] - counts_before[name]} launches for "
               f"{reads} reads")
@@ -576,8 +607,29 @@ def phase_session(dev):
     log(json.dumps({"metric": "propagation_fps_480p_3obj", "median": med,
                     "rounds": fps, "reads": total_reads,
                     "launches": counts}))
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    return counts, session_f32(dev, images, masks, mem)
+
+
+def session_f32(dev, images, masks, mem):
+    """The bench protocol on fp32 convs and an fp32 bank: one warm round,
+    one measured (frames/s), one with read_refine=1. Returns the launch
+    counts of the last two, zeroed just before them."""
+    prop, fuse = make_nets(dev, F32)
+    warm = InferenceCore(prop, fuse, images, K, mem=mem, device=dev)
+    dt, _, _ = run_round(warm, masks[7], 0, cmr.launch_counts())
+    log(f"fp32 warm round: {dt:.3f} s")
+    del warm
+    cmr.reset_launch_counts()   # the fp32 path's launches start here
+    core = InferenceCore(prop, fuse, images, K, mem=mem, device=dev)
+    dt, reads, counts = run_round(core, masks[5], 0, cmr.launch_counts())
+    refine_net = copy.copy(prop)
+    refine_net.read_refine = 1
+    core = InferenceCore(refine_net, fuse, images, K, mem=mem, device=dev)
+    dt_refine, reads_refine, counts = run_round(core, masks[6], 0, counts)
+    log(json.dumps({"metric": "propagation_fps_480p_3obj_fp32", "frames_s": (T - 1) / dt,
+                    "round_s": dt, "read_refine1_round_s": dt_refine,
+                    "reads": reads + reads_refine, "bank_slots": core.bank.num_slots,
+                    "launches": counts}))
     return counts
 
 
@@ -639,9 +691,9 @@ def watched_cores(calls, read_shapes):
     orig_interact, orig_update = InferenceCore.interact, InferenceCore.update_mask_only
     orig_candidates = cmr.candidates_cuda
 
-    def candidates_cuda(rq, mem_k, mask, top_k):
+    def candidates_cuda(rq, mem_k, mask, top_k, planes=None):
         read_shapes.add((mem_k.shape[0], rq.rows, mem_k.shape[1]))
-        return orig_candidates(rq, mem_k, mask, top_k)
+        return orig_candidates(rq, mem_k, mask, top_k, planes)
 
     def interact(self, mask, idx):
         reads, before = expected_reads(self, idx), cmr.launch_counts()
@@ -711,11 +763,9 @@ def phase_davis(dev):
               == [c == "interact" for c in want], f"{name}: round records")
         total_reads += sum(n for _, n in seq_calls)
         log(f"{name}: K={k}, skipped rounds {skipped}, reads {sum(n for _, n in seq_calls)}")
-    check(counts["candidates"] == counts["candidates_merge"] == counts["readout"]
-          == counts["readout_merge"] == total_reads,
+    check(counts == {name: n * total_reads
+                     for name, n in cmr.launches_per_read(BF16, 0).items()},
           f"launches {counts} for {total_reads} reads")
-    check(counts["refine"] == counts["refine_merge"] == 0,
-          "refine launched at read_refine=0")
     check(total_reads > 0, "the DAVIS path made no memory read")
     jf = [v for traj in summary["records"].values() for _, v in traj]
     check(all(0.0 <= v <= 1.0 for v in jf), f"J&F outside [0, 1]: {jf}")
@@ -794,7 +844,7 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with cudnn_mode(benchmark=True):   # the bench protocol's setting
-        launches = phase_session(dev)
+        launches_bf16, launches_f32 = phase_session(dev)
     log(f"session phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -810,27 +860,25 @@ def main():
     phase_davis_check(dev)
     log(f"davis phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
-    for name in REPLACES:
-        session = sum(launches[c] for c in LAUNCHES[name])
-        davis = sum(davis_launches[c] for c in LAUNCHES[name])
-        at, at32 = (timing[dtype][TIMING_M[-1]] for dtype in (torch.bfloat16, torch.float32))
+    for name, phase, dtype, counters in KERNELS:
+        paths = ({"session": launches_bf16, "davis": davis_launches} if dtype == BF16
+                 else {"session_fp32": launches_f32})
+        by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
+        session = paths["session" if dtype == BF16 else "session_fp32"]
+        for c in counters:   # the session paths run every kernel (davis: no refine)
+            check(session[c] > 0, f"{c} never launched on the session path")
+        at = timing[dtype][TIMING_M[-1]]
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
-            "replaces": REPLACES[name], "launches": session + davis,
-            "launches_by_path": {"session": session, "davis": davis},
-            "max_abs_err": max(errs[name], davis_errs[name]),
-            "max_abs_err_by_path": {"session": errs[name],
-                                    "davis": davis_errs[name]},
-            "ms": at["kernel_ms"][name], "plain_ms": at["plain_ms"][name],
-            "bound_ms": at["bound_ms"][name], "bound_by": at["bound_by"][name],
+            "replaces": REPLACES[phase], "bank": str(dtype)[6:],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(errs[str(dtype)[6:]][phase],
+                               davis_errs[str(dtype)[6:]][phase]),
+            "ms": at["kernel_ms"][phase], "plain_ms": at["plain_ms"][phase],
+            "bound_ms": at["bound_ms"][phase], "bound_by": at["bound_by"][phase],
             "library_ms": None,   # no PyTorch call computes a thresholded top-k read
-            "ms_by_M": {m: timing[torch.bfloat16][m]["kernel_ms"][name] for m in TIMING_M},
-            "bound_ms_by_M": {m: timing[torch.bfloat16][m]["bound_ms"][name]
-                              for m in TIMING_M},
-            "fp32": {"ms": at32["kernel_ms"][name], "plain_ms": at32["plain_ms"][name],
-                     "bound_ms": at32["bound_ms"][name], "bound_by": at32["bound_by"][name],
-                     "ms_by_M": {m: timing[torch.float32][m]["kernel_ms"][name]
-                                 for m in TIMING_M}}})
+            "ms_by_M": {m: timing[dtype][m]["kernel_ms"][phase] for m in TIMING_M},
+            "bound_ms_by_M": {m: timing[dtype][m]["bound_ms"][phase] for m in TIMING_M}})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

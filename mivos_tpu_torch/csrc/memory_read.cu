@@ -12,20 +12,25 @@
 //   _candidates_kernel (phase A: top-2 per bin under two partitions, then
 //   bisection for t):
 //     candidates_bf16_kernel + candidates_merge_kernel   bf16 banks
-//     candidates_kernel                                  fp32 banks
+//     candidates_f32_kernel + candidates_merge_kernel    fp32 banks
 //   _refine_kernel (exact-count threshold tightening):
 //     refine_bf16_kernel + refine_merge_kernel           bf16 banks
 //     refine_kernel                                      fp32 banks
 //   _readout_kernel (phase B: thresholded exp, w.V):
 //     readout_bf16_kernel + readout_merge_kernel         bf16 banks
-//     readout_kernel                                     fp32 banks
+//     readout_f32_kernel + readout_merge_kernel          fp32 banks
+//   and, for fp32 banks, hilo_planes_kernel: the bf16 planes k_hi = bf16(k),
+//   k_lo = bf16(k - k_hi) of keys and values, which the JAX kernel forms in
+//   the body of _affinity (pallas/memory_read.py:108-113) from each tile.
 //
 // Layout and contract (checked by the Python wrapper, ops/cuda/memory_read.py):
-//   q      (N, 128) fp32, pre-scaled by 1/sqrt(128), contiguous (fp32
-//          banks); for bf16 banks its split q_hi = bf16(q), q_lo =
-//          bf16(q - q_hi), each (N, 128) bf16
-//   keys   (K, M, 128) fp32 or bf16, rows contiguous, object stride stride_k
-//   values (K, M, 512) same dtype as keys, object stride stride_v
+//   q      the query (N, 128) fp32, pre-scaled by 1/sqrt(128), as its split
+//          q_hi = bf16(q), q_lo = bf16(q - q_hi), each (N, 128) bf16
+//   keys   (K, M, 128) fp32 or bf16, rows contiguous, object stride stride_k;
+//          for fp32 banks phases A and B take the keys' bf16 planes k_hi,
+//          k_lo, each (K, M, 128) contiguous
+//   values (K, M, 512) same dtype as keys, object stride stride_v; for fp32
+//          banks phase B takes their planes v_hi, v_lo, (K, M, 512)
 //   mask   (M,) fp32 additive (0 or -1e30), or null for "all live"
 //   stats  (K, 3, N) fp32: threshold, rowmax, refine upper bound
 //   out    (K, N, 512) fp32
@@ -116,22 +121,64 @@
 //
 // Refine at that shape: the same 52.4 GFLOP as phase A, 0.053 ms.
 //
-// fp32 banks keep the first version's design in all three phases: one
-// block per (object, 16 query rows) looping over all of M, keys staged
-// as fp32, a 16 x 128 affinity tile by sequential fp32 FMAs (a single
-// bf16 or TF32 pass costs ~10% weight error on trained banks), w.V by
-// FMAs; all three rank that one FMA affinity. All arithmetic that decides
-// the selection (bisection midpoints, refine edges) uses explicitly
-// rounded fp32 operations, so that given equal affinities kernel and
-// plain PyTorch version pick the same set.
+// fp32 banks. The affinity is the JAX kernel's three-term split for fp32
+// keys (_affinity): a = q_hi.k_hi + q_hi.k_lo + q_lo.k_hi, the q_lo.k_lo
+// term dropped (~1e-5 relative), three bf16 passes into one fp32
+// accumulator, per K step of 16 in that order (a single bf16 or TF32 pass
+// costs ~10% weight error on trained banks). The readout's w.V is
+// fp32-accurate the same way: w_hi.v_hi + w_lo.v_hi + w_hi.v_lo, with
+// sum(w) kept from the unrounded fp32 w. hilo_planes_kernel writes the
+// keys' and values' bf16 planes once a read, for both phases (a pass over
+// the bank at the memory rate, ~0.1 ms at K = 3, M = 21060), so the kernels
+// stage bf16 planes with cp.async exactly as the bf16-bank kernels stage
+// a bf16 bank, and split M in the same 256-aligned ranges with the same
+// merges. The planes double the shared memory the bf16 plans need, so:
+//
+//   readout_f32_kernel: readout_bf16_kernel with 32-key chunks (64 query
+//   rows, two warpgroups; per chunk the affinity of each warpgroup's 16
+//   keys on wgmma.m64n16k16, 8 K steps x 3 passes; w.V as 2 K steps x 3
+//   passes of wgmma.m64n256k16, A = the w_hi and w_lo tiles by ldmatrix).
+//   Queries 32 KB, two stages of key planes 32 KB and value planes 128 KB,
+//   w tiles 10 KB: 203 KB of the 227 KB a block may hold.
+//
+//   candidates_f32_kernel: candidates_bf16_kernel with the keys' planes
+//   staged as 128-key half-slices (two stages x two planes = 136 KB); the
+//   16 warps compute the 32 x 128 tile of a half-slice, 16 x 16 each, on
+//   mma.sync (3 passes), and the bins take the 32 x 256 slice tile after
+//   its second half.
+//
+//   What bounds them at the timing shape (K = 3, N = 1620, M = 21060,
+//   fp32 bank): the readout's 3 + 3 passes are 78.6 + 314.4 = 393 GFLOP,
+//   0.397 ms at 989 TFLOP/s against 173 MB of device memory (0.052 ms):
+//   compute bound; phase A's 78.6 GFLOP, 0.079 ms. Measured (kernel and
+//   merge on planes made apart, H100 SXM at 700 W): readout 1.24 ms, phase
+//   A 0.61 ms, the read's planes of keys and values 0.116 ms (83% of their
+//   0.097 ms bytes bound). Tried
+//   and slower: blocks of 64-key chunks x 256 value columns (two blocks a
+//   row tile, the query halves in registers, the affinity computed by
+//   both), 19% slower at this shape. Splitting the planes in shared
+//   memory after an fp32 stage would need the fp32 chunk (80 KB at 32
+//   keys) beside its planes: 282 KB with two stages.
+//
+//   refine_kernel (still the first version's design: one block per
+//   (object, 16 query rows) over all of M, keys staged as fp32): the same
+//   three-term split by sequential fp32 FMAs, the keys' planes formed from
+//   the staged fp32 keys, the query halves staged as fp32. Bf16 products
+//   are exact in fp32, so all three phases rank one function up to the
+//   order of fp32 additions.
+//
+// All arithmetic that decides the selection (bisection midpoints, refine
+// edges) uses explicitly rounded fp32 operations, so that given equal
+// affinities kernel and plain PyTorch version pick the same set.
 //
 // Left undone: TMA for the staging (cp.async stages everything); the
-// fp32-bank kernels still compute the affinity with FMAs; phases A and B
-// are not fused.
+// fp32-bank refine on the tensor cores; phases A and B are not fused.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -139,12 +186,11 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int CK = 128;          // key width
 constexpr int CV = 512;          // value width
-constexpr int TN = 16;           // query rows per block (fp32-bank kernels)
+constexpr int TN = 16;           // query rows per block (fp32-bank refine)
 constexpr int THREADS = 256;
-constexpr int KC = 128;          // keys per affinity chunk
+constexpr int KC = 128;          // keys per affinity chunk (fp32-bank refine)
 constexpr int KS = CK + 4;       // shared row stride of q/k tiles (floats)
-constexpr int AFS = KC + 16;     // shared row stride of affinity/weight tiles
-constexpr int VC = 32;           // value rows per w.V sub-chunk
+constexpr int AFS = KC + 16;     // shared row stride of refine's affinity tile
 constexpr int C_BINS = 256;      // candidate bins per partition
 constexpr int TPU_SLICES = 4;    // 256-wide slices per TPU tile (TM = 1024)
 constexpr int ROLL = 85;         // partition-2 roll per slice (coprime to 256)
@@ -153,9 +199,6 @@ constexpr float THRESH_RANGE = 30.0f;
 constexpr int BISECT_ITERS = 22;
 constexpr int N_EDGES = 7;
 constexpr float REFINE_CAP = 0.15f;
-
-static_assert(TN * 4 * C_BINS <= KC * KS, "bin state must fit the key buffer");
-static_assert(VC * CV <= KC * KS, "value chunk must fit the key buffer");
 
 // Copy `rows` rows of `width` elements starting at row j0 into shared
 // memory as fp32 with row stride `stride`; rows >= M are zero.
@@ -172,36 +215,60 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ src, int M,
   }
 }
 
-__device__ __forceinline__ void load_queries(const float* __restrict__ q, int N,
-                                             int n0, float* qs) {
-  load_rows<TN, CK, KS>(q, N, n0, qs);
+// Copy query rows n0 .. n0 + TN of the halves into shared memory as fp32
+// with row stride KS; rows >= N are zero.
+__device__ __forceinline__ void load_query_halves(const bf16* __restrict__ q_hi,
+                                                  const bf16* __restrict__ q_lo, int N,
+                                                  int n0, float* qh, float* ql) {
+  for (int i = threadIdx.x; i < TN * CK; i += THREADS) {
+    const int r = i / CK, c = i % CK;
+    const bool live = n0 + r < N;
+    const size_t at = (size_t)(n0 + r) * CK + c;
+    qh[r * KS + c] = live ? __bfloat162float(q_hi[at]) : 0.f;
+    ql[r * KS + c] = live ? __bfloat162float(q_lo[at]) : 0.f;
+  }
 }
 
-// 16 x 128 affinity tile: thread t owns rows 4*(t/64) .. +3 and keys
-// (t%64) and (t%64)+64 of the chunk. Sequential fp32 FMAs over d.
-__device__ __forceinline__ void affinity_tile(const float* qs, const float* ks,
-                                              float acc[4][2]) {
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// 16 x 128 tile of the three-term split affinity: thread t owns rows
+// 4*(t/64) .. +3 and keys (t%64) and (t%64)+64 of the chunk. Per element
+// d, k_hi = bf16(k), k_lo = bf16(k - k_hi), then sequential fp32 FMAs
+// q_hi.k_hi, q_hi.k_lo, q_lo.k_hi (bf16 products, exact in fp32).
+__device__ __forceinline__ void affinity_tile(const float* qh, const float* ql,
+                                              const float* ks, float acc[4][2]) {
   const int rg = threadIdx.x >> 6, kg = threadIdx.x & 63;
-  const float* k0 = ks + kg * KS;
-  const float* k1 = ks + (kg + 64) * KS;
-  const float* q0 = qs + rg * 4 * KS;
+  const float* kr[2] = {ks + kg * KS, ks + (kg + 64) * KS};
 #pragma unroll
   for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 4
+#pragma unroll 2
   for (int d = 0; d < CK; d += 4) {
-    const float4 a = *reinterpret_cast<const float4*>(k0 + d);
-    const float4 b = *reinterpret_cast<const float4*>(k1 + d);
+    float kh[2][4], kl[2][4];
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const float4 v = *reinterpret_cast<const float4*>(kr[jj] + d);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        kh[jj][u] = bf16_round(e[u]);
+        kl[jj][u] = bf16_round(__fsub_rn(e[u], kh[jj][u]));
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 x = *reinterpret_cast<const float4*>(q0 + i * KS + d);
-      acc[i][0] = fmaf(x.x, a.x, acc[i][0]);
-      acc[i][0] = fmaf(x.y, a.y, acc[i][0]);
-      acc[i][0] = fmaf(x.z, a.z, acc[i][0]);
-      acc[i][0] = fmaf(x.w, a.w, acc[i][0]);
-      acc[i][1] = fmaf(x.x, b.x, acc[i][1]);
-      acc[i][1] = fmaf(x.y, b.y, acc[i][1]);
-      acc[i][1] = fmaf(x.z, b.z, acc[i][1]);
-      acc[i][1] = fmaf(x.w, b.w, acc[i][1]);
+      const float4 xh = *reinterpret_cast<const float4*>(qh + (rg * 4 + i) * KS + d);
+      const float4 xl = *reinterpret_cast<const float4*>(ql + (rg * 4 + i) * KS + d);
+      const float h[4] = {xh.x, xh.y, xh.z, xh.w}, l[4] = {xl.x, xl.y, xl.z, xl.w};
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[i][jj] = fmaf(h[u], kh[jj][u], acc[i][jj]);
+          acc[i][jj] = fmaf(h[u], kl[jj][u], acc[i][jj]);
+          acc[i][jj] = fmaf(l[u], kh[jj][u], acc[i][jj]);
+        }
     }
   }
 }
@@ -224,12 +291,6 @@ __device__ __forceinline__ void insert2(float& a, float& b, float x) {
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
@@ -258,92 +319,6 @@ __device__ __forceinline__ float2 bisect_row(const float v1[16], const float v2[
     hi = ok ? hi : mid;
   }
   return make_float2(lo, mx);
-}
-
-// ---------------------------------------------------------------------------
-// Phase A for fp32 banks. Replaces _candidates_kernel
-// (mivos_tpu/ops/pallas/memory_read.py:116). Thread b owns bin b of both
-// partitions for all 16 rows, so the 2 x top-2 x 256-bin state (4 KB per
-// row) lives in 64 registers per thread. The memory axis is walked in
-// 256-wide slices s; partition 1 puts key j in bin j mod 256, partition
-// 2 in bin (j mod 256 + 85 * ((j mod 1024) div 256)) mod 256. Slices past
-// the end of the bank would only insert -1e30 and are skipped. At the end
-// the state goes to shared memory and one warp per row bisects.
-__global__ void __launch_bounds__(THREADS)
-candidates_kernel(const float* __restrict__ q, const float* __restrict__ keys,
-                  long long stride_k, const float* __restrict__ mask,
-                  float* __restrict__ stats, int N, int M, int top_k) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // TN x KS
-  float* ks = qs + TN * KS;                       // KC x KS, later the bin state
-  float* aff = ks + KC * KS;                      // TN x C_BINS (one slice)
-  const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
-  const int rg = tid >> 6, kg = tid & 63;
-  const float* kb = keys + (size_t)k * stride_k;
-  load_queries(q, N, n0, qs);
-
-  float p1a[TN], p1b[TN], p2a[TN], p2b[TN];
-#pragma unroll
-  for (int r = 0; r < TN; ++r) p1a[r] = p1b[r] = p2a[r] = p2b[r] = NEG_INF;
-
-  const int nslices = (M + C_BINS - 1) / C_BINS;
-  for (int s = 0; s < nslices; ++s) {
-    for (int half = 0; half < C_BINS / KC; ++half) {
-      const int j0 = s * C_BINS + half * KC;
-      __syncthreads();
-      load_rows<KC, CK, KS>(kb, M, j0, ks);
-      __syncthreads();
-      float acc[4][2];
-      affinity_tile(qs, ks, acc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int c = kg + 64 * jj;
-          aff[(rg * 4 + i) * C_BINS + half * KC + c] =
-              masked(acc[i][jj], mask, j0 + c, M);
-        }
-    }
-    __syncthreads();
-    const int b = tid;
-    const int src2 = (b - ROLL * (s % TPU_SLICES)) & (C_BINS - 1);
-#pragma unroll
-    for (int r = 0; r < TN; ++r) {
-      insert2(p1a[r], p1b[r], aff[r * C_BINS + b]);
-      insert2(p2a[r], p2b[r], aff[r * C_BINS + src2]);
-    }
-  }
-
-  __syncthreads();
-  float* st = ks;  // TN x (p1a | p1b | p2a | p2b), 4 * C_BINS per row
-#pragma unroll
-  for (int r = 0; r < TN; ++r) {
-    st[r * 4 * C_BINS + tid] = p1a[r];
-    st[r * 4 * C_BINS + C_BINS + tid] = p1b[r];
-    st[r * 4 * C_BINS + 2 * C_BINS + tid] = p2a[r];
-    st[r * 4 * C_BINS + 3 * C_BINS + tid] = p2b[r];
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int r = warp; r < TN; r += THREADS / 32) {
-    const float* row = st + r * 4 * C_BINS;
-    float v1[16], v2[16];  // this lane's bins of (p1a, p1b) and (p2a, p2b)
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      v1[i] = row[lane + 32 * i];
-      v1[8 + i] = row[C_BINS + lane + 32 * i];
-      v2[i] = row[2 * C_BINS + lane + 32 * i];
-      v2[8 + i] = row[3 * C_BINS + lane + 32 * i];
-    }
-    const float2 tm = bisect_row(v1, v2, top_k);
-    if (lane == 0 && n0 + r < N) {
-      float* o = stats + (size_t)k * 3 * N + n0 + r;
-      o[0] = tm.x;
-      o[N] = tm.y;
-      o[2 * N] = tm.y;  // refine upper bound starts at the row max
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -376,24 +351,26 @@ __device__ __forceinline__ void refine_update(const int cnt[N_EDGES], const floa
 }
 
 // Refine for fp32 banks. Replaces _refine_kernel
-// (mivos_tpu/ops/pallas/memory_read.py:221). Bounded like the fp32-bank
-// phase A (the same affinity stream, plus 7 compares per element); 16
-// threads share a row and reduce their integer counts by shuffles.
+// (mivos_tpu/ops/pallas/memory_read.py:221). Bounded by the affinity's
+// FMAs (three a product term, 3 x 2 x 16 x M x 128 a block) and the
+// M x 128 fp32 keys each block streams; 16 threads share a row and
+// reduce their integer counts by shuffles.
 __global__ void __launch_bounds__(THREADS)
-refine_kernel(const float* __restrict__ q, const float* __restrict__ keys,
-              long long stride_k, const float* __restrict__ mask,
-              const float* __restrict__ stats_in, float* __restrict__ stats_out,
-              int N, int M, int top_k) {
+refine_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
+              const float* __restrict__ keys, long long stride_k,
+              const float* __restrict__ mask, const float* __restrict__ stats_in,
+              float* __restrict__ stats_out, int N, int M, int top_k) {
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // TN x KS
-  float* ks = qs + TN * KS;                       // KC x KS
+  float* qh = reinterpret_cast<float*>(smem4);  // TN x KS
+  float* ql = qh + TN * KS;                       // TN x KS
+  float* ks = ql + TN * KS;                       // KC x KS
   float* aff = ks + KC * KS;                      // TN x AFS
   float* edges = aff + TN * AFS;                  // TN x N_EDGES
   const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
   const int rg = tid >> 6, kg = tid & 63;
   const float* kb = keys + (size_t)k * stride_k;
   const float* sin = stats_in + (size_t)k * 3 * N;
-  load_queries(q, N, n0, qs);
+  load_query_halves(q_hi, q_lo, N, n0, qh, ql);
   if (tid < TN) {
     const int n = min(n0 + tid, N - 1);
     const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
@@ -410,7 +387,7 @@ refine_kernel(const float* __restrict__ q, const float* __restrict__ keys,
     load_rows<KC, CK, KS>(kb, M, j0, ks);
     __syncthreads();
     float acc[4][2];
-    affinity_tile(qs, ks, acc);
+    affinity_tile(qh, ql, ks, acc);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -436,110 +413,6 @@ refine_kernel(const float* __restrict__ q, const float* __restrict__ keys,
 
   if (col == 0 && n0 + row < N)
     refine_update(cnt, sin, stats_out + (size_t)k * 3 * N, n0 + row, N, top_k);
-}
-
-// ---------------------------------------------------------------------------
-// Phase B for fp32 banks. Replaces _readout_kernel
-// (mivos_tpu/ops/pallas/memory_read.py:284). Bounded by the w.V FMAs
-// (2*16*M*512 per block) and the M*(128+512) bank elements each block
-// streams. The (16, 512) fp32 accumulator is spread over
-// the block's registers (thread t: rows 4*(t/64)..+3, columns 4*(t%64)..+3
-// and 256+4*(t%64)..+3), so no value columns need splitting across blocks.
-// Each 128-key chunk: affinity tile -> w = (a >= t) ? exp(a - rowmax) : 0,
-// sum of fp32 w kept per thread, w rounded to the value dtype into shared
-// memory; then the chunk's values are staged 32 rows at a time (fp32) and
-// accumulated with FMAs.
-__global__ void __launch_bounds__(THREADS)
-readout_kernel(const float* __restrict__ q, const float* __restrict__ keys,
-               long long stride_k, const float* __restrict__ values,
-               long long stride_v, const float* __restrict__ mask,
-               const float* __restrict__ stats, float* __restrict__ out, int N,
-               int M) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // TN x KS
-  float* buf = qs + TN * KS;                      // keys (KC x KS) or values (VC x CV)
-  float* wsm = buf + KC * KS;                     // TN x AFS
-  float* red = wsm + TN * AFS;                    // 8 warps x 4 rows
-  const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
-  const int rg = tid >> 6, kg = tid & 63, cg = tid & 63;
-  const float* kb = keys + (size_t)k * stride_k;
-  const float* vb = values + (size_t)k * stride_v;
-  const float* st = stats + (size_t)k * 3 * N;
-  load_queries(q, N, n0, qs);
-
-  float th[4], mx[4], wpart[4], o[4][8];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = min(n0 + rg * 4 + i, N - 1);
-    th[i] = st[n];
-    mx[i] = st[N + n];
-    wpart[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
-  }
-
-  for (int j0 = 0; j0 < M; j0 += KC) {
-    __syncthreads();
-    load_rows<KC, CK, KS>(kb, M, j0, buf);
-    __syncthreads();
-    float acc[4][2];
-    affinity_tile(qs, buf, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = kg + 64 * jj;
-        const float a = masked(acc[i][jj], mask, j0 + c, M);
-        const float w = a >= th[i] ? expf(__fsub_rn(a, mx[i])) : 0.f;
-        wpart[i] += w;
-        wsm[(rg * 4 + i) * AFS + c] = w;
-      }
-    for (int sub = 0; sub < KC / VC && j0 + sub * VC < M; ++sub) {
-      __syncthreads();
-      load_rows<VC, CV, CV>(vb, M, j0 + sub * VC, buf);
-      __syncthreads();
-#pragma unroll 4
-      for (int c = 0; c < VC; ++c) {
-        const float4 v0 = *reinterpret_cast<const float4*>(buf + c * CV + cg * 4);
-        const float4 v1 =
-            *reinterpret_cast<const float4*>(buf + c * CV + CV / 2 + cg * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float w = wsm[(rg * 4 + i) * AFS + sub * VC + c];
-          o[i][0] = fmaf(w, v0.x, o[i][0]);
-          o[i][1] = fmaf(w, v0.y, o[i][1]);
-          o[i][2] = fmaf(w, v0.z, o[i][2]);
-          o[i][3] = fmaf(w, v0.w, o[i][3]);
-          o[i][4] = fmaf(w, v1.x, o[i][4]);
-          o[i][5] = fmaf(w, v1.y, o[i][5]);
-          o[i][6] = fmaf(w, v1.z, o[i][6]);
-          o[i][7] = fmaf(w, v1.w, o[i][7]);
-        }
-      }
-    }
-  }
-
-  // Row sums of w: the 64 threads of a row group are warps 2*rg and 2*rg+1.
-  const int warp = tid >> 5, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float s = warp_sum(wpart[i]);
-    if (lane == 0) red[warp * 4 + i] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + rg * 4 + i;
-    if (n >= N) continue;
-    const float ws = red[(2 * rg) * 4 + i] + red[(2 * rg + 1) * 4 + i];
-    float* orow = out + ((size_t)k * N + n) * CV;
-    *reinterpret_cast<float4*>(orow + cg * 4) =
-        make_float4(__fdiv_rn(o[i][0], ws), __fdiv_rn(o[i][1], ws),
-                    __fdiv_rn(o[i][2], ws), __fdiv_rn(o[i][3], ws));
-    *reinterpret_cast<float4*>(orow + CV / 2 + cg * 4) =
-        make_float4(__fdiv_rn(o[i][4], ws), __fdiv_rn(o[i][5], ws),
-                    __fdiv_rn(o[i][6], ws), __fdiv_rn(o[i][7], ws));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -658,6 +531,35 @@ __device__ __forceinline__ void split_affinity_16x32(const bf16* q_hi,
   }
 }
 
+// One warp's 16 x 16 three-pass split affinity tile for fp32 keys: rows
+// r0.. of the staged query halves, keys c0.. of the staged key planes
+// (row stride QSB). Per K step q_hi.k_hi, q_hi.k_lo, q_lo.k_hi accumulate
+// in fp32 (the JAX kernel's _affinity for fp32 keys). acc[nt] is the m16n8
+// fragment of keys c0 + 8*nt .. +7.
+__device__ __forceinline__ void split3_affinity_16x16(const bf16* q_hi, const bf16* q_lo,
+                                                      const bf16* k_hi, const bf16* k_lo,
+                                                      int r0, int c0, float acc[2][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  const int qoff = (r0 + (lane & 15)) * QSB + (lane >> 4) * 8;
+  const int koff = (c0 + (lane & 7) + ((lane >> 4) << 3)) * QSB + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < CK / 16; ++kk) {
+    uint32_t ah[4], al[4], bh[4], bl[4];
+    ldmatrix_x4(ah, q_hi + qoff + kk * 16);
+    ldmatrix_x4(al, q_lo + qoff + kk * 16);
+    ldmatrix_x4(bh, k_hi + koff + kk * 16);
+    ldmatrix_x4(bl, k_lo + koff + kk * 16);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      mma_bf16_16x8x16(acc[nt], ah, bh[2 * nt], bh[2 * nt + 1]);
+      mma_bf16_16x8x16(acc[nt], ah, bl[2 * nt], bl[2 * nt + 1]);
+      mma_bf16_16x8x16(acc[nt], al, bh[2 * nt], bh[2 * nt + 1]);
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Phase A for bf16 banks. Replaces _candidates_kernel
 // (mivos_tpu/ops/pallas/memory_read.py:116). TR = 32 query rows per block
@@ -732,6 +634,103 @@ candidates_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q
     for (int r = 0; r < 16; ++r) {
       insert2(p1a[r], p1b[r], arow[r * AFB + b]);
       insert2(p2a[r], p2b[r], arow[r * AFB + src2]);
+    }
+  }
+
+  float* o = ws + (((size_t)s * K + k) * N) * 4 * C_BINS;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int n = n0 + rgrp * 16 + r;
+    if (n >= N) continue;
+    float* row = o + (size_t)n * 4 * C_BINS;
+    row[b] = p1a[r];
+    row[C_BINS + b] = p1b[r];
+    row[2 * C_BINS + b] = p2a[r];
+    row[3 * C_BINS + b] = p2b[r];
+  }
+}
+
+// Phase A for fp32 banks. Replaces _candidates_kernel
+// (mivos_tpu/ops/pallas/memory_read.py:116). candidates_bf16_kernel's
+// plan on the keys' bf16 planes: both planes of a 256-key slice and a
+// second stage would take 278 KB, so they stream as 128-key half-slices
+// (two stages x two planes, 136 KB). Warp w computes rows 16*(w/8).. x
+// keys 16*(w%8).. of each half-slice into columns 128*(half).. of the
+// slice tile; after the second half, thread t inserts bin t%256 of rows
+// 16*(t/256)..+15. Writes the block's bin state to ws (S, K, N, 4, 256).
+constexpr int CF_HALF = C_BINS / 2;   // keys per stage
+constexpr size_t kCandidatesF32Smem =
+    (size_t)(2 * TR * QSB + 4 * CF_HALF * QSB) * sizeof(bf16) +
+    (size_t)(TR * AFB + 2 * CF_HALF) * sizeof(float);
+
+__global__ void __launch_bounds__(CAND_THREADS, 1)
+candidates_f32_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
+                      const bf16* __restrict__ k_hi, const bf16* __restrict__ k_lo,
+                      const float* __restrict__ mask, float* __restrict__ ws, int N,
+                      int M, int S) {
+  constexpr int NT = CAND_THREADS, HP = CF_HALF * QSB;   // HP: one plane's half-slice
+  extern __shared__ uint4 smem_u4[];
+  bf16* sqh = reinterpret_cast<bf16*>(smem_u4);   // TR x QSB
+  bf16* sql = sqh + TR * QSB;                     // TR x QSB
+  bf16* sk = sql + TR * QSB;                      // [stage][hi, lo] x CF_HALF x QSB
+  float* aff = reinterpret_cast<float*>(sk + 4 * HP);  // TR x AFB
+  float* smask = aff + TR * AFB;                  // 2 stages x CF_HALF
+  const int n0 = blockIdx.x * TR, s = blockIdx.y, k = blockIdx.z, K = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int am = warp >> 3, akc = (warp & 7) * 16;   // affinity tile of this warp
+  const int rgrp = tid >> 8, b = tid & (C_BINS - 1);  // bin owned by this thread
+  const bf16* kh = k_hi + (size_t)k * M * CK;
+  const bf16* kl = k_lo + (size_t)k * M * CK;
+  int j_begin, j_end;
+  split_range(M, S, s, j_begin, j_end);
+  const int nhalf = 2 * ((j_end - j_begin + C_BINS - 1) / C_BINS);
+
+  float p1a[16], p1b[16], p2a[16], p2b[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) p1a[r] = p1b[r] = p2a[r] = p2b[r] = NEG_INF;
+
+  auto stage = [&](int buf, int j0) {
+    stage_rows<CF_HALF, CK, QSB, NT>(sk + 2 * buf * HP, kh, j0, M);
+    stage_rows<CF_HALF, CK, QSB, NT>(sk + (2 * buf + 1) * HP, kl, j0, M);
+    if (mask) stage_mask<CF_HALF>(smask + buf * CF_HALF, mask, j0, M);
+  };
+  stage_rows<TR, CK, QSB, NT>(sqh, q_hi, n0, N);
+  stage_rows<TR, CK, QSB, NT>(sql, q_lo, n0, N);
+  stage(0, j_begin);
+  cp_async_commit();
+  for (int i = 0; i < nhalf; ++i) {
+    const int j0 = j_begin + i * CF_HALF, buf = i & 1;
+    cp_async_wait_all();
+    __syncthreads();   // half i landed; half i-1's stage and the last bin pass are done
+    if (i + 1 < nhalf) {
+      stage(buf ^ 1, j0 + CF_HALF);
+      cp_async_commit();
+    }
+    float acc[2][4];
+    split3_affinity_16x16(sqh, sql, sk + 2 * buf * HP, sk + (2 * buf + 1) * HP, am * 16,
+                          akc, acc);
+    const float* sm = mask ? smask + buf * CF_HALF : nullptr;
+    float* arow = aff + (i & 1) * CF_HALF;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = akc + nt * 8 + t4 * 2;
+        *reinterpret_cast<float2*>(arow + (am * 16 + g + 8 * h) * AFB + c) =
+            make_float2(masked_staged(acc[nt][2 * h], sm, c, j0 + c, M),
+                        masked_staged(acc[nt][2 * h + 1], sm, c + 1, j0 + c + 1, M));
+      }
+    if (i & 1) {
+      __syncthreads();   // the slice tile is complete
+      const int src2 =
+          (b - ROLL * (((j0 - CF_HALF) / C_BINS) % TPU_SLICES)) & (C_BINS - 1);
+      const float* srow = aff + rgrp * 16 * AFB;
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        insert2(p1a[r], p1b[r], srow[r * AFB + b]);
+        insert2(p2a[r], p2b[r], srow[r * AFB + src2]);
+      }
     }
   }
 
@@ -930,19 +929,22 @@ __device__ __forceinline__ void stage_rows_sw128(bf16* dst, const bf16* __restri
   }
 }
 
-// Stage value rows [row0, row0 + RO_KC) (zero from `limit` on) in the
-// layout above. Piece i is 16-byte chunk u = i%8 of key row j = (i/8)%64
-// in column atom na = i/512: eight lanes copy one row's 128 bytes of an
-// atom, from contiguous global memory into one swizzled 128-byte line.
+// Stage value rows [row0, row0 + KCH) (zero from `limit` on) in the
+// layout above, with (KCH / 8) * V_KATOM bytes between atoms along N.
+// Piece i is 16-byte chunk u = i%8 of key row j = (i/8)%KCH in column atom
+// na = i/(8*KCH): eight lanes copy one row's 128 bytes of an atom, from
+// contiguous global memory into one swizzled 128-byte line.
+template <int KCH>
 __device__ __forceinline__ void stage_values(bf16* dst, const bf16* __restrict__ src,
                                              int row0, int limit) {
+  constexpr int NATOM = (KCH / 8) * V_KATOM;
   char* d = reinterpret_cast<char*>(dst);
 #pragma unroll
-  for (int t = 0; t < RO_KC * (CV / 8) / THREADS; ++t) {
-    const int i = threadIdx.x + t * THREADS;
-    const int u = i & 7, j = (i >> 3) & (RO_KC - 1), na = i >> 9;
+  for (int t = 0; t < KCH * (CV / 8) / THREADS; ++t) {
+    const unsigned i = threadIdx.x + t * THREADS;
+    const int u = i & 7, j = (i >> 3) & (KCH - 1), na = i / (8 * KCH);
     const bool valid = row0 + j < limit;
-    cp_async16(d + na * V_NATOM + (j >> 3) * V_KATOM + (j & 7) * 128 + ((u ^ (j & 7)) << 4),
+    cp_async16(d + na * NATOM + (j >> 3) * V_KATOM + (j & 7) * 128 + ((u ^ (j & 7)) << 4),
                valid ? src + (size_t)(row0 + j) * CV + na * 64 + u * 8 : src,
                valid ? 16 : 0);
   }
@@ -989,7 +991,7 @@ readout_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo
   stage_rows_sw128<RO_ROWS>(sqh, q_hi, n0, N);
   stage_rows_sw128<RO_ROWS>(sql, q_lo, n0, N);
   stage_rows_sw128<RO_KC>(sk, kb, j_begin, M);
-  stage_values(sv, vb, j_begin, M);
+  stage_values<RO_KC>(sv, vb, j_begin, M);
   if (mask) stage_mask<RO_KC>(smask, mask, j_begin, M);
   cp_async_commit();
   for (int c = 0; c < nch; ++c) {
@@ -999,7 +1001,7 @@ readout_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo
     __syncthreads();   // chunk c landed; chunk c-1's stage and w tile are free
     if (c + 1 < nch) {
       stage_rows_sw128<RO_KC>(sk + (buf ^ 1) * RO_KC * CK, kb, j0 + RO_KC, M);
-      stage_values(sv + (buf ^ 1) * RO_KC * CV, vb, j0 + RO_KC, M);
+      stage_values<RO_KC>(sv + (buf ^ 1) * RO_KC * CV, vb, j0 + RO_KC, M);
       if (mask) stage_mask<RO_KC>(smask + (buf ^ 1) * RO_KC, mask, j0 + RO_KC, M);
       cp_async_commit();
     }
@@ -1083,6 +1085,229 @@ readout_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo
     for (int nt = 0; nt < CV / 16; ++nt)
       *reinterpret_cast<float2*>(orow + nt * 8) =
           make_float2(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+  }
+}
+
+// wgmma (sm_90a): D (64 x 16 fp32, 8 registers a thread, the m16n8
+// fragment layout per warp and n-tile) += A (64 x 16 bf16) x B (16 x 16
+// bf16), both K-major in shared memory, described by `da` and `db`.
+__device__ __forceinline__ void wgmma_64x16x16_ss(float d[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Phase B for fp32 banks. Replaces _readout_kernel
+// (mivos_tpu/ops/pallas/memory_read.py:284). readout_bf16_kernel on the
+// bf16 planes of the keys and values, in 32-key chunks: two stages of
+// both planes of a 64-key chunk's values alone would take 256 KB. Per
+// chunk warpgroup g computes the affinity of keys 16*g.. (wgmma m64n16k16,
+// 8 K steps x 3 passes: q_hi.k_hi, q_hi.k_lo, q_lo.k_hi), each warp forms
+// w for its 16 rows, keeps sum(w) in fp32 of the unrounded w and stores
+// w_hi = bf16(w) and w_lo = bf16(w - w_hi) in shared memory; then each
+// warpgroup adds w_hi.v_hi, w_lo.v_hi and w_hi.v_lo for its 256 value
+// columns (wgmma m64n256k16, A = the w tiles loaded by ldmatrix), per K
+// step of 16 keys in that order. Bounded by the tensor cores: 3 affinity
+// passes and 3 w.V passes, 2.3x the FLOPs of the bf16-bank readout.
+// Writes (S, K, N, 512) partial sums and (S, K, N) partial sum(w).
+constexpr int RF32_KC = 32;                      // keys per chunk
+constexpr int WSF = RF32_KC + 8;                 // shared row stride of the w tiles (80 B)
+constexpr int VF_NATOM = (RF32_KC / 8) * V_KATOM;  // bytes between value atoms along N
+constexpr size_t kReadoutF32Smem =
+    (size_t)(2 * RO_ROWS * CK + 4 * RF32_KC * CK + 4 * RF32_KC * CV + 2 * RO_ROWS * WSF) *
+        sizeof(bf16) +
+    (size_t)(2 * RO_ROWS + 2 * RF32_KC) * sizeof(float);
+static_assert(SPLIT_ALIGN % RF32_KC == 0, "chunks tile the M ranges");
+
+__global__ void __launch_bounds__(THREADS, 1)
+readout_f32_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
+                   const bf16* __restrict__ k_hi, const bf16* __restrict__ k_lo,
+                   const bf16* __restrict__ v_hi, const bf16* __restrict__ v_lo,
+                   const float* __restrict__ mask, const float* __restrict__ stats,
+                   float* __restrict__ ws_acc, float* __restrict__ ws_sum, int N, int M,
+                   int S) {
+  constexpr int KCH = RF32_KC, KP = KCH * CK, VP = KCH * CV;  // one plane's chunk
+  extern __shared__ __align__(1024) uint4 smem_u4[];
+  bf16* sqh = reinterpret_cast<bf16*>(smem_u4);   // RO_ROWS x CK, K-major swizzled
+  bf16* sql = sqh + RO_ROWS * CK;                 // RO_ROWS x CK, K-major swizzled
+  bf16* sk = sql + RO_ROWS * CK;                  // [stage][hi, lo] x KCH x CK, K-major swizzled
+  bf16* sv = sk + 4 * KP;                         // [stage][hi, lo] x KCH x CV, N-major swizzled
+  bf16* swh = sv + 4 * VP;                        // RO_ROWS x WSF: w_hi
+  bf16* swl = swh + RO_ROWS * WSF;                // RO_ROWS x WSF: w_lo
+  float* red = reinterpret_cast<float*>(swl + RO_ROWS * WSF);  // 2 x RO_ROWS
+  float* smask = red + 2 * RO_ROWS;               // 2 stages x KCH
+  const int n0 = blockIdx.x * RO_ROWS, s = blockIdx.y, k = blockIdx.z, K = gridDim.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  // Affinity: rows 16*ar, keys 16*ac. w.V: rows 16*ar, columns 256*ac.
+  const int ar = warp & 3, ac = warp >> 2;
+  const bf16* kh = k_hi + (size_t)k * M * CK;
+  const bf16* kl = k_lo + (size_t)k * M * CK;
+  const bf16* vh = v_hi + (size_t)k * M * CV;
+  const bf16* vl = v_lo + (size_t)k * M * CV;
+  const float* st = stats + (size_t)k * 3 * N;
+  int j_begin, j_end;
+  split_range(M, S, s, j_begin, j_end);
+  const int nch = (j_end - j_begin + KCH - 1) / KCH;
+
+  float th[2], mx[2], wpart[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = min(n0 + ar * 16 + g + 8 * h, N - 1);
+    th[h] = st[n];
+    mx[h] = st[N + n];
+  }
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  auto stage = [&](int buf, int j0) {
+    stage_rows_sw128<KCH>(sk + 2 * buf * KP, kh, j0, M);
+    stage_rows_sw128<KCH>(sk + (2 * buf + 1) * KP, kl, j0, M);
+    stage_values<KCH>(sv + 2 * buf * VP, vh, j0, M);
+    stage_values<KCH>(sv + (2 * buf + 1) * VP, vl, j0, M);
+    if (mask) stage_mask<KCH>(smask + buf * KCH, mask, j0, M);
+  };
+  stage_rows_sw128<RO_ROWS>(sqh, q_hi, n0, N);
+  stage_rows_sw128<RO_ROWS>(sql, q_lo, n0, N);
+  stage(0, j_begin);
+  cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    const int j0 = j_begin + c * KCH, buf = c & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();   // chunk c landed; chunk c-1's stage and w tiles are free
+    if (c + 1 < nch) {
+      stage(buf ^ 1, j0 + KCH);
+      cp_async_commit();
+    }
+    // Split affinity of this warpgroup's 16 keys: K step kk reads columns
+    // 16*kk.. of the query halves and key planes, in half kk/4 at byte
+    // 32*(kk%4).
+    float sa[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) sa[i] = 0.f;
+    const char* qhc = reinterpret_cast<const char*>(sqh);
+    const char* qlc = reinterpret_cast<const char*>(sql);
+    const char* khc = reinterpret_cast<const char*>(sk + 2 * buf * KP) + ac * 16 * 128;
+    const char* klc = reinterpret_cast<const char*>(sk + (2 * buf + 1) * KP) + ac * 16 * 128;
+    wgmma_fence_operands<8>(sa);   // the zeros are written before the fence
+    wgmma_fence();
+    wgmma_fence_operands<8>(sa);
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const int qo = (kk >> 2) * RO_ROWS * 128 + (kk & 3) * 32;
+      const int ko = (kk >> 2) * KCH * 128 + (kk & 3) * 32;
+      const uint64_t dqh = gmma_desc_sw128(qhc + qo, 16, SW_ATOM);
+      const uint64_t dkh = gmma_desc_sw128(khc + ko, 16, SW_ATOM);
+      wgmma_64x16x16_ss(sa, dqh, dkh);
+      wgmma_64x16x16_ss(sa, dqh, gmma_desc_sw128(klc + ko, 16, SW_ATOM));
+      wgmma_64x16x16_ss(sa, gmma_desc_sw128(qlc + qo, 16, SW_ATOM), dkh);
+    }
+    wgmma_commit_and_wait();
+    wgmma_fence_operands<8>(sa);
+    const float* sm = mask ? smask + buf * KCH : nullptr;
+    const bool tail = j0 + KCH > M;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = ac * 16 + nt * 8 + t4 * 2;
+        float w[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = sa[4 * nt + 2 * h + e];
+          if (sm) a += sm[col + e];
+          if (tail && j0 + col + e >= M) a = NEG_INF;
+          w[e] = 0.f;
+          if (a >= th[h]) {
+            w[e] = expf(__fsub_rn(a, mx[h]));
+            wpart[h] += w[e];
+          }
+        }
+        const __nv_bfloat162 whi = __floats2bfloat162_rn(w[0], w[1]);
+        const int at = (ar * 16 + g + 8 * h) * WSF + col;
+        *reinterpret_cast<__nv_bfloat162*>(swh + at) = whi;
+        *reinterpret_cast<__nv_bfloat162*>(swl + at) = __floats2bfloat162_rn(
+            __fsub_rn(w[0], __low2float(whi)), __fsub_rn(w[1], __high2float(whi)));
+      }
+    __syncthreads();   // the w tiles are complete
+    uint32_t ah[KCH / 16][4], al[KCH / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < KCH / 16; ++ks) {
+      const int at = (ar * 16 + (lane & 15)) * WSF + ks * 16 + (lane >> 4) * 8;
+      ldmatrix_x4(ah[ks], swh + at);
+      ldmatrix_x4(al[ks], swl + at);
+    }
+    const char* vhs =
+        reinterpret_cast<const char*>(sv + 2 * buf * VP) + ac * (CV / 128) * VF_NATOM;
+    const char* vls =
+        reinterpret_cast<const char*>(sv + (2 * buf + 1) * VP) + ac * (CV / 128) * VF_NATOM;
+    wgmma_fence();
+    wgmma_fence_operands<128>(acc);
+#pragma unroll
+    for (int ks = 0; ks < KCH / 16; ++ks) {
+      const uint64_t dvh = gmma_desc_sw128(vhs + ks * 2 * V_KATOM, VF_NATOM, V_KATOM);
+      wgmma_64x256x16(acc, ah[ks], dvh);
+      wgmma_64x256x16(acc, al[ks], dvh);
+      wgmma_64x256x16(acc, ah[ks], gmma_desc_sw128(vls + ks * 2 * V_KATOM, VF_NATOM, V_KATOM));
+    }
+    wgmma_commit_and_wait();
+    wgmma_fence_operands<128>(acc);
+  }
+
+  // Partial sum(w) per row: over the 4 lanes of a row, then the 2 key halves.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float v = wpart[h];
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    if (t4 == 0) red[ac * RO_ROWS + ar * 16 + g + 8 * h] = v;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)s * K + k;
+  if (tid < RO_ROWS && n0 + tid < N)
+    ws_sum[plane * N + n0 + tid] = red[tid] + red[RO_ROWS + tid];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + ar * 16 + g + 8 * h;
+    if (n >= N) continue;
+    float* orow = ws_acc + (plane * N + n) * CV + ac * (CV / 2) + t4 * 2;
+#pragma unroll
+    for (int nt = 0; nt < CV / 16; ++nt)
+      *reinterpret_cast<float2*>(orow + nt * 8) =
+          make_float2(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+  }
+}
+
+// The bf16 planes of an fp32 bank, the split the JAX kernel's _affinity
+// makes of each fp32 key tile (pallas/memory_read.py:108-113): hi =
+// bf16(x), lo = bf16(x - hi), each written (K, rows, C) contiguous from
+// the K objects of `src` (object stride `stride` elements, rows
+// contiguous). Four elements a step; bounded by the bytes (4 read, 4
+// written an element).
+__global__ void __launch_bounds__(THREADS)
+hilo_planes_kernel(const float* __restrict__ src, long long stride, long long per_obj4,
+                   long long total4, bf16* __restrict__ hi, bf16* __restrict__ lo) {
+  for (long long i = blockIdx.x * (long long)THREADS + threadIdx.x; i < total4;
+       i += (long long)gridDim.x * THREADS) {
+    const long long k = i / per_obj4;
+    const float4 x =
+        *reinterpret_cast<const float4*>(src + k * stride + 4 * (i - k * per_obj4));
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(x.x, x.y);
+    const __nv_bfloat162 h1 = __floats2bfloat162_rn(x.z, x.w);
+    const __nv_bfloat162 l0 = __floats2bfloat162_rn(__fsub_rn(x.x, __low2float(h0)),
+                                                    __fsub_rn(x.y, __high2float(h0)));
+    const __nv_bfloat162 l1 = __floats2bfloat162_rn(__fsub_rn(x.z, __low2float(h1)),
+                                                    __fsub_rn(x.w, __high2float(h1)));
+    reinterpret_cast<__nv_bfloat162*>(hi)[2 * i] = h0;
+    reinterpret_cast<__nv_bfloat162*>(hi)[2 * i + 1] = h1;
+    reinterpret_cast<__nv_bfloat162*>(lo)[2 * i] = l0;
+    reinterpret_cast<__nv_bfloat162*>(lo)[2 * i + 1] = l1;
   }
 }
 
@@ -1282,10 +1507,8 @@ refine_merge_kernel(const int* __restrict__ ws, const float* __restrict__ stats_
 
 // ---------------------------------------------------------------------------
 
-constexpr size_t kCandidatesSmem = (TN * KS + KC * KS + TN * C_BINS) * sizeof(float);
 constexpr size_t kRefineSmem =
-    (TN * KS + KC * KS + TN * AFS + TN * N_EDGES) * sizeof(float);
-constexpr size_t kReadoutSmem = (TN * KS + KC * KS + TN * AFS + 32) * sizeof(float);
+    (2 * TN * KS + KC * KS + TN * AFS + TN * N_EDGES) * sizeof(float);
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
@@ -1299,18 +1522,30 @@ int set_smem(Kernel kernel, size_t bytes) {
 // `stream`, does not synchronise, and returns cudaGetLastError() after
 // the launch (0 = success). S is the number of M ranges; the workspaces
 // are (S, K, N, 4, 256) fp32 for phase A, (S, K, N, 7) int32 for refine
-// and (S, K, N, 512) plus (S, K, N) fp32 for phase B.
+// and (S, K, N, 512) plus (S, K, N) fp32 for phase B. The *_hilo
+// functions take an fp32 bank as the bf16 planes mr_hilo_planes writes.
 extern "C" {
 
-int mr_candidates_f32(const void* q, const void* keys, long long stride_k,
-                      const void* mask, void* stats, int K, int N, int M,
-                      int top_k, void* stream) {
-  if (int e = set_smem(candidates_kernel, kCandidatesSmem)) return e;
-  dim3 grid((N + TN - 1) / TN, K);
-  candidates_kernel<<<grid, THREADS, kCandidatesSmem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
-      static_cast<const float*>(mask), static_cast<float*>(stats), N, M, top_k);
+int mr_hilo_planes(const void* src, long long stride, int K, int M, int C, void* hi,
+                   void* lo, void* stream) {
+  const long long per_obj4 = (long long)M * C / 4, total4 = per_obj4 * K;
+  const int blocks = (int)std::min<long long>((total4 + THREADS - 1) / THREADS, 4096);
+  hilo_planes_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), stride, per_obj4, total4, static_cast<bf16*>(hi),
+      static_cast<bf16*>(lo));
+  return (int)cudaGetLastError();
+}
+
+int mr_candidates_hilo(const void* q_hi, const void* q_lo, const void* k_hi,
+                       const void* k_lo, const void* mask, void* ws, int K, int N, int M,
+                       int S, void* stream) {
+  if (int e = set_smem(candidates_f32_kernel, kCandidatesF32Smem)) return e;
+  dim3 grid((N + TR - 1) / TR, S, K);
+  candidates_f32_kernel<<<grid, CAND_THREADS, kCandidatesF32Smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
+      static_cast<const bf16*>(k_hi), static_cast<const bf16*>(k_lo),
+      static_cast<const float*>(mask), static_cast<float*>(ws), N, M, S);
   return (int)cudaGetLastError();
 }
 
@@ -1336,15 +1571,15 @@ int mr_candidates_merge(const void* ws, void* stats, int K, int N, int S,
   return (int)cudaGetLastError();
 }
 
-int mr_refine_f32(const void* q, const void* keys, long long stride_k,
-                  const void* mask, const void* stats_in, void* stats_out, int K,
-                  int N, int M, int top_k, void* stream) {
+int mr_refine_f32(const void* q_hi, const void* q_lo, const void* keys,
+                  long long stride_k, const void* mask, const void* stats_in,
+                  void* stats_out, int K, int N, int M, int top_k, void* stream) {
   if (int e = set_smem(refine_kernel, kRefineSmem)) return e;
   dim3 grid((N + TN - 1) / TN, K);
   refine_kernel<<<grid, THREADS, kRefineSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
-      static_cast<const float*>(mask), static_cast<const float*>(stats_in),
-      static_cast<float*>(stats_out), N, M, top_k);
+      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
+      static_cast<const float*>(keys), stride_k, static_cast<const float*>(mask),
+      static_cast<const float*>(stats_in), static_cast<float*>(stats_out), N, M, top_k);
   return (int)cudaGetLastError();
 }
 
@@ -1370,16 +1605,18 @@ int mr_refine_merge(const void* ws, const void* stats_in, void* stats_out, int K
   return (int)cudaGetLastError();
 }
 
-int mr_readout_f32(const void* q, const void* keys, long long stride_k,
-                   const void* values, long long stride_v, const void* mask,
-                   const void* stats, void* out, int K, int N, int M,
-                   void* stream) {
-  if (int e = set_smem(readout_kernel, kReadoutSmem)) return e;
-  dim3 grid((N + TN - 1) / TN, K);
-  readout_kernel<<<grid, THREADS, kReadoutSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(keys), stride_k,
-      static_cast<const float*>(values), stride_v, static_cast<const float*>(mask),
-      static_cast<const float*>(stats), static_cast<float*>(out), N, M);
+int mr_readout_hilo(const void* q_hi, const void* q_lo, const void* k_hi,
+                    const void* k_lo, const void* v_hi, const void* v_lo, const void* mask,
+                    const void* stats, void* ws_acc, void* ws_sum, int K, int N, int M,
+                    int S, void* stream) {
+  if (int e = set_smem(readout_f32_kernel, kReadoutF32Smem)) return e;
+  dim3 grid((N + RO_ROWS - 1) / RO_ROWS, S, K);
+  readout_f32_kernel<<<grid, THREADS, kReadoutF32Smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
+      static_cast<const bf16*>(k_hi), static_cast<const bf16*>(k_lo),
+      static_cast<const bf16*>(v_hi), static_cast<const bf16*>(v_lo),
+      static_cast<const float*>(mask), static_cast<const float*>(stats),
+      static_cast<float*>(ws_acc), static_cast<float*>(ws_sum), N, M, S);
   return (int)cudaGetLastError();
 }
 

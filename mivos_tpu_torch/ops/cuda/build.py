@@ -30,14 +30,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "mr_candidates_f32": [_VP, _VP, _LL, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mr_hilo_planes": [_VP, _LL, _I, _I, _I, _VP, _VP, _VP],
+    "mr_candidates_hilo": [_VP] * 6 + [_I] * 4 + [_VP],
     "mr_candidates_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_candidates_merge": [_VP, _VP, _I, _I, _I, _I, _VP],
-    "mr_refine_f32": [_VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mr_refine_f32": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_refine_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_refine_merge": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
-    "mr_readout_f32": [_VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _I, _I, _I,
-                       _VP],
+    "mr_readout_hilo": [_VP] * 10 + [_I] * 4 + [_VP],
     "mr_readout_bf16": [_VP, _VP, _VP, _LL, _VP, _LL, _VP, _VP, _VP, _VP, _I,
                         _I, _I, _I, _VP],
     "mr_readout_merge": [_VP, _VP, _VP, _I, _I, _I, _VP],

@@ -22,18 +22,26 @@ The algorithm (three phases, kernels in csrc/memory_read.cu):
 Phase statistics travel as one (K, 3, N) fp32 tensor: threshold, row
 max, refine upper bound.
 
-The affinity. For fp32 banks it is the full-fp32 product of the scaled
-query. For bf16 banks it is the JAX kernel's split (`_affinity`): q_hi =
-bf16(q), q_lo = bf16(q - q_hi), a = q_hi.k + q_lo.k, i.e. the product of
-q_hi + q_lo (exact in fp32) with the keys up to fp32 rounding. The
-kernels of all three phases run it as two bf16 tensor-core passes into
-one fp32 accumulator, so that all phases rank the same affinities; the
-plain version as two fp32 products summed (as `_affinity` sums its
-passes). `read_query` makes the query of one read once.
+The affinity is the JAX kernel's split (`_affinity`) of the scaled query
+q: q_hi = bf16(q), q_lo = bf16(q - q_hi). On bf16 banks a = q_hi.k +
+q_lo.k, the product of q_hi + q_lo (exact in fp32) with the keys up to
+fp32 rounding. On fp32 banks the keys split the same way, k_hi =
+bf16(k), k_lo = bf16(k - k_hi), and a = q_hi.k_hi + q_hi.k_lo + q_lo.k_hi
+(the q_lo.k_lo term dropped, ~1e-5 relative). The kernels of all three
+phases run it as bf16 passes into one fp32 accumulator (tensor cores;
+fp32 FMAs of the same bf16 products in the fp32-bank refine), so that all
+phases rank the same affinities; the plain version as fp32 products
+summed (as `_affinity` sums its passes). `read_query` makes the query of
+one read once. On fp32 banks phase B's w.V is fp32-accurate from three
+bf16 passes, w_hi.v_hi + w_lo.v_hi + w_hi.v_lo, against the plain
+version's fp32 product. The fp32-bank phase A and B kernels read the
+bf16 planes of the keys and values (`BankPlanes`), which
+`memory_read_threshold_cuda` has `bank_planes_cuda` write once a read.
 
-On bf16 banks every phase splits the memory axis into S ranges cut at
-multiples of 256 keys (`split_count`), writes per-range partials to a
-workspace and merges them in a second kernel, in a fixed order of ranges.
+Phases A and B, and refine on bf16 banks, split the memory axis into S
+ranges cut at multiples of 256 keys (`split_count`), write per-range
+partials to a workspace and merge them in a second kernel, in a fixed
+order of ranges.
 
 Each phase has a kernel wrapper (`*_cuda`: CUDA tensors only, raises on
 anything else, counts its launches) and a plain version (`*_plain`:
@@ -59,9 +67,10 @@ ROLL = 85
 N_EDGES = 7
 REFINE_CAP = 0.15
 CK, CV = 128, 512
-SPLIT_ALIGN = C_BINS   # M ranges of the bf16 kernels start at multiples of this
-# Per bf16 kernel (csrc/memory_read.cu): query rows per block, blocks an
-# SM holds at once (its shared memory), most M ranges.
+SPLIT_ALIGN = C_BINS   # M ranges of the split-M kernels start at multiples of this
+# Per split-M kernel (csrc/memory_read.cu; both bank dtypes of phases A and
+# B): query rows per block, blocks an SM holds at once (its shared
+# memory), most M ranges.
 BLOCK_ROWS = {"candidates": 32, "refine": 64, "readout": 64}
 SM_BLOCKS = {"candidates": 1, "refine": 3, "readout": 1}
 MAX_SPLITS = {"candidates": 4, "refine": 8, "readout": 8}
@@ -69,9 +78,25 @@ FULL_WAVES = 0.85      # split_count's target share of full waves
 
 # Launches of each kernel since the last reset: a wrapper adds one
 # exactly where it launches its kernel; the plain versions never count.
-_LAUNCHES: Dict[str, int] = {"candidates": 0, "candidates_merge": 0,
-                             "refine": 0, "refine_merge": 0, "readout": 0,
-                             "readout_merge": 0}
+_LAUNCHES: Dict[str, int] = {
+    "candidates_bf16": 0, "candidates_f32": 0, "candidates_merge": 0,
+    "refine_bf16": 0, "refine_f32": 0, "refine_merge": 0,
+    "readout_bf16": 0, "readout_f32": 0, "readout_merge": 0, "hilo_planes": 0}
+
+
+def launches_per_read(bank_dtype: torch.dtype, n_refine: int) -> Dict[str, int]:
+    """The launches of each counter one `memory_read_threshold_cuda` call
+    makes on a bank of `bank_dtype`: phases A and B with their merges
+    once, refine n_refine times (on bf16 banks with its merge); on fp32
+    banks the planes kernel once for the keys and once for the values."""
+    if bank_dtype == torch.bfloat16:
+        per = {"candidates_bf16": 1, "candidates_merge": 1,
+               "refine_bf16": n_refine, "refine_merge": n_refine,
+               "readout_bf16": 1, "readout_merge": 1}
+    else:
+        per = {"hilo_planes": 2, "candidates_f32": 1, "candidates_merge": 1,
+               "refine_f32": n_refine, "readout_f32": 1, "readout_merge": 1}
+    return {name: per.get(name, 0) for name in _LAUNCHES}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -89,32 +114,28 @@ def scaled_query(query_k: torch.Tensor) -> torch.Tensor:
             * (1.0 / math.sqrt(query_k.shape[-1]))).contiguous()
 
 
-def split_query(q: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Scaled fp32 query -> (q_hi, q_lo) bf16, `_affinity`'s split: q_hi +
-    q_lo is exact in fp32 and within about 2^-17 of q, relative."""
-    q_hi = q.to(torch.bfloat16)
-    q_lo = (q - q_hi.to(torch.float32)).to(torch.bfloat16)
-    return q_hi.contiguous(), q_lo.contiguous()
+def hilo_planes_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 tensor -> (hi, lo) bf16, `_affinity`'s split: hi = bf16(x),
+    lo = bf16(x - hi); hi + lo is exact in fp32 and within about 2^-17 of
+    x, relative."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return hi.contiguous(), lo.contiguous()
 
 
 class ReadQuery(NamedTuple):
-    """The query of one read: for fp32 banks `q`, the (N, CK) scaled fp32
-    query; for bf16 banks its split `hi`, `lo` (each (N, CK) bf16), and
-    `q` is None."""
-    q: Optional[torch.Tensor]
-    hi: Optional[torch.Tensor] = None
-    lo: Optional[torch.Tensor] = None
+    """The query of one read, the split `hi`, `lo` (each (N, CK) bf16) of
+    the scaled fp32 query, on banks of either dtype."""
+    hi: torch.Tensor
+    lo: torch.Tensor
 
     @property
     def rows(self) -> int:
-        return (self.q if self.hi is None else self.hi).shape[0]
+        return self.hi.shape[0]
 
 
-def read_query(query_k: torch.Tensor, bank_dtype: torch.dtype) -> ReadQuery:
-    q = scaled_query(query_k)
-    if bank_dtype != torch.bfloat16:
-        return ReadQuery(q)
-    return ReadQuery(None, *split_query(q))
+def read_query(query_k: torch.Tensor) -> ReadQuery:
+    return ReadQuery(*hilo_planes_plain(scaled_query(query_k)))
 
 
 def additive_mask(valid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -154,12 +175,17 @@ def masked_affinity(q: torch.Tensor, mem_k: torch.Tensor,
 
 def read_affinity(rq: ReadQuery, mem_k: torch.Tensor,
                   mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """(K, N, M) fp32 affinity of one read plus the additive mask: q.k for
-    fp32 banks, q_hi.k + q_lo.k for bf16 banks."""
-    if rq.hi is None:
-        return masked_affinity(rq.q, mem_k, mask)
-    aff = (masked_affinity(rq.hi.to(torch.float32), mem_k, None)
-           + masked_affinity(rq.lo.to(torch.float32), mem_k, None))
+    """(K, N, M) fp32 affinity of one read plus the additive mask:
+    q_hi.k + q_lo.k for bf16 banks, q_hi.k_hi + q_hi.k_lo + q_lo.k_hi
+    for fp32 banks (k_hi, k_lo = hilo_planes_plain(k))."""
+    hi, lo = rq.hi.to(torch.float32), rq.lo.to(torch.float32)
+    if mem_k.dtype == torch.bfloat16:
+        aff = (masked_affinity(hi, mem_k, None)
+               + masked_affinity(lo, mem_k, None))
+    else:
+        k_hi, k_lo = hilo_planes_plain(mem_k)
+        aff = (masked_affinity(hi, k_hi, None) + masked_affinity(hi, k_lo, None)
+               + masked_affinity(lo, k_hi, None))
     return aff if mask is None else aff + mask
 
 
@@ -245,8 +271,7 @@ def memory_read_threshold_plain(mem_k: torch.Tensor, mem_v: torch.Tensor,
                                 valid: Optional[torch.Tensor] = None,
                                 n_refine: int = 0) -> torch.Tensor:
     """The kernels' algorithm as dense PyTorch ops."""
-    aff = read_affinity(read_query(query_k, mem_k.dtype), mem_k,
-                        additive_mask(valid))
+    aff = read_affinity(read_query(query_k), mem_k, additive_mask(valid))
     stats = candidates_plain(aff, top_k)
     for _ in range(n_refine):
         stats = refine_plain(aff, stats, top_k)
@@ -290,17 +315,10 @@ def _check_dense(name: str, x: Optional[torch.Tensor], shape, device,
 def _common(rq: ReadQuery, mem_k: torch.Tensor, mask, top_k: int):
     k, m = mem_k.shape[:2]
     _check_bank("mem_k", mem_k, k, m, CK)
-    bf16 = mem_k.dtype == torch.bfloat16
-    if (rq.hi is None or rq.lo is None) if bf16 else rq.q is None:
-        raise ValueError(f"a {mem_k.dtype} bank needs read_query(query_k, "
-                         f"{mem_k.dtype})")
     n = rq.rows
     _check_dense("mask", mask, (m,), mem_k.device)
-    if bf16:
-        _check_dense("q_hi", rq.hi, (n, CK), mem_k.device, torch.bfloat16)
-        _check_dense("q_lo", rq.lo, (n, CK), mem_k.device, torch.bfloat16)
-    else:
-        _check_dense("q", rq.q, (n, CK), mem_k.device)
+    _check_dense("q_hi", rq.hi, (n, CK), mem_k.device, torch.bfloat16)
+    _check_dense("q_lo", rq.lo, (n, CK), mem_k.device, torch.bfloat16)
     if m < 1 or n < 1 or top_k < 1:
         raise ValueError(f"need M, N, top_k >= 1 (M={m}, N={n}, "
                          f"top_k={top_k})")
@@ -334,38 +352,86 @@ def _sm_count(device: torch.device) -> int:
 
 
 def range_blocks(kernel: str, k: int, n: int) -> int:
-    """Blocks of one M range of the bf16 `kernel` ("candidates", "refine"
-    or "readout") for K objects and N query rows."""
+    """Blocks of one M range of the split-M `kernel` ("candidates",
+    "refine" or "readout"; refine on bf16 banks) for K objects and N query
+    rows."""
     return k * -(-n // BLOCK_ROWS[kernel])
 
 
 def kernel_splits(kernel: str, k: int, n: int, m: int, sms: int) -> int:
-    """The number of M ranges the bf16 `kernel` takes on a card of `sms` SMs."""
+    """The number of M ranges the split-M `kernel` takes on a card of
+    `sms` SMs."""
     return split_count(range_blocks(kernel, k, n), m, sms * SM_BLOCKS[kernel],
                        MAX_SPLITS[kernel])
 
 
+def hilo_planes_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 planes (hi, lo) of an fp32 bank (K, M, C), rows contiguous:
+    each (K, M, C) contiguous, equal to hilo_planes_plain(x)."""
+    if not x.is_cuda or x.dtype != torch.float32 or x.ndim != 3 or x.shape[2] % 4:
+        raise ValueError(f"hilo_planes_cuda takes a CUDA float32 (K, M, C) bank "
+                         f"with C % 4 == 0, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    _check_bank("bank", x, *x.shape)
+    hi = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    lo = torch.empty_like(hi)
+    with torch.cuda.device(x.device):
+        _launch("hilo_planes", _lib().mr_hilo_planes(
+            x.data_ptr(), x.stride(0), *x.shape, hi.data_ptr(), lo.data_ptr(),
+            _stream(x.device)))
+    return hi, lo
+
+
+class BankPlanes(NamedTuple):
+    """The bf16 planes of an fp32 bank's keys and values (each (K, M, C)
+    contiguous, hilo_planes_plain's split): what the fp32-bank phase A and
+    B kernels read, made once a read by `bank_planes_cuda`."""
+    k_hi: torch.Tensor
+    k_lo: torch.Tensor
+    v_hi: torch.Tensor
+    v_lo: torch.Tensor
+
+
+def bank_planes_cuda(mem_k: torch.Tensor, mem_v: torch.Tensor) -> BankPlanes:
+    return BankPlanes(*hilo_planes_cuda(mem_k), *hilo_planes_cuda(mem_v))
+
+
+def _check_planes(planes: Optional[BankPlanes], mem_k: torch.Tensor,
+                  with_values: bool) -> BankPlanes:
+    if planes is None:
+        raise ValueError("fp32 banks need their bf16 planes (bank_planes_cuda)")
+    k, m = mem_k.shape[:2]
+    names = ("k_hi", "k_lo") + (("v_hi", "v_lo") if with_values else ())
+    for name in names:
+        c = CK if name[0] == "k" else CV
+        _check_dense(name, getattr(planes, name), (k, m, c), mem_k.device,
+                     torch.bfloat16)
+    return planes
+
+
 def candidates_cuda(rq: ReadQuery, mem_k: torch.Tensor,
-                    mask: Optional[torch.Tensor], top_k: int) -> torch.Tensor:
+                    mask: Optional[torch.Tensor], top_k: int,
+                    planes: Optional[BankPlanes] = None) -> torch.Tensor:
     """Phase A: the read's query, keys, additive mask (M,) or None ->
-    (K, 3, N) stats. bf16 banks launch the split-M kernel and its merge;
-    fp32 banks one kernel."""
+    (K, 3, N) stats. Launches the split-M kernel of the bank's dtype (on
+    fp32 banks it reads the keys' `planes`) and the merge."""
     k, n, m = _common(rq, mem_k, mask, top_k)
     dev = mem_k.device
     stats = torch.empty((k, 3, n), dtype=torch.float32, device=dev)
+    splits = kernel_splits("candidates", k, n, m, _sm_count(dev))
+    ws = torch.empty((splits, k, n, 4, C_BINS), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        if mem_k.dtype != torch.bfloat16:
-            _launch("candidates", _lib().mr_candidates_f32(
-                rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
-                stats.data_ptr(), k, n, m, top_k, _stream(dev)))
-            return stats
-        splits = kernel_splits("candidates", k, n, m, _sm_count(dev))
-        ws = torch.empty((splits, k, n, 4, C_BINS), dtype=torch.float32,
-                         device=dev)
-        _launch("candidates", _lib().mr_candidates_bf16(
-            rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
-            mem_k.stride(0), _ptr(mask), ws.data_ptr(), k, n, m, splits,
-            _stream(dev)))
+        if mem_k.dtype == torch.bfloat16:
+            _launch("candidates_bf16", _lib().mr_candidates_bf16(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
+                mem_k.stride(0), _ptr(mask), ws.data_ptr(), k, n, m, splits,
+                _stream(dev)))
+        else:
+            p = _check_planes(planes, mem_k, with_values=False)
+            _launch("candidates_f32", _lib().mr_candidates_hilo(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), p.k_hi.data_ptr(),
+                p.k_lo.data_ptr(), _ptr(mask), ws.data_ptr(), k, n, m, splits,
+                _stream(dev)))
         _launch("candidates_merge", _lib().mr_candidates_merge(
             ws.data_ptr(), stats.data_ptr(), k, n, splits, top_k, _stream(dev)))
     return stats
@@ -383,13 +449,14 @@ def refine_cuda(rq: ReadQuery, mem_k: torch.Tensor,
     out = torch.empty_like(stats)
     with torch.cuda.device(dev):
         if mem_k.dtype != torch.bfloat16:
-            _launch("refine", _lib().mr_refine_f32(
-                rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0), _ptr(mask),
-                stats.data_ptr(), out.data_ptr(), k, n, m, top_k, _stream(dev)))
+            _launch("refine_f32", _lib().mr_refine_f32(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
+                mem_k.stride(0), _ptr(mask), stats.data_ptr(), out.data_ptr(), k,
+                n, m, top_k, _stream(dev)))
             return out
         splits = kernel_splits("refine", k, n, m, _sm_count(dev))
         ws = torch.empty((splits, k, n, N_EDGES), dtype=torch.int32, device=dev)
-        _launch("refine", _lib().mr_refine_bf16(
+        _launch("refine_bf16", _lib().mr_refine_bf16(
             rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
             mem_k.stride(0), _ptr(mask), stats.data_ptr(), ws.data_ptr(), k, n,
             m, splits, _stream(dev)))
@@ -400,10 +467,11 @@ def refine_cuda(rq: ReadQuery, mem_k: torch.Tensor,
 
 
 def readout_cuda(rq: ReadQuery, mem_k: torch.Tensor, mem_v: torch.Tensor,
-                 mask: Optional[torch.Tensor],
-                 stats: torch.Tensor) -> torch.Tensor:
-    """Phase B -> (K, N, 512) fp32 readout. bf16 banks launch the split-M
-    kernel and its merge; fp32 banks one kernel."""
+                 mask: Optional[torch.Tensor], stats: torch.Tensor,
+                 planes: Optional[BankPlanes] = None) -> torch.Tensor:
+    """Phase B -> (K, N, 512) fp32 readout. Launches the split-M kernel of
+    the bank's dtype (on fp32 banks it reads the `planes` of keys and
+    values) and the merge."""
     k, n, m = _common(rq, mem_k, mask, 1)
     _check_bank("mem_v", mem_v, k, m, CV)
     if mem_v.dtype != mem_k.dtype:
@@ -412,22 +480,23 @@ def readout_cuda(rq: ReadQuery, mem_k: torch.Tensor, mem_v: torch.Tensor,
     dev = mem_k.device
     _check_dense("stats", stats, (k, 3, n), dev)
     out = torch.empty((k, n, CV), dtype=torch.float32, device=dev)
+    splits = kernel_splits("readout", k, n, m, _sm_count(dev))
+    ws_acc = torch.empty((splits, k, n, CV), dtype=torch.float32, device=dev)
+    ws_sum = torch.empty((splits, k, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        if mem_k.dtype != torch.bfloat16:
-            _launch("readout", _lib().mr_readout_f32(
-                rq.q.data_ptr(), mem_k.data_ptr(), mem_k.stride(0),
-                mem_v.data_ptr(), mem_v.stride(0), _ptr(mask),
-                stats.data_ptr(), out.data_ptr(), k, n, m, _stream(dev)))
-            return out
-        splits = kernel_splits("readout", k, n, m, _sm_count(dev))
-        ws_acc = torch.empty((splits, k, n, CV), dtype=torch.float32,
-                             device=dev)
-        ws_sum = torch.empty((splits, k, n), dtype=torch.float32, device=dev)
-        _launch("readout", _lib().mr_readout_bf16(
-            rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
-            mem_k.stride(0), mem_v.data_ptr(), mem_v.stride(0), _ptr(mask),
-            stats.data_ptr(), ws_acc.data_ptr(), ws_sum.data_ptr(), k, n, m,
-            splits, _stream(dev)))
+        if mem_k.dtype == torch.bfloat16:
+            _launch("readout_bf16", _lib().mr_readout_bf16(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
+                mem_k.stride(0), mem_v.data_ptr(), mem_v.stride(0), _ptr(mask),
+                stats.data_ptr(), ws_acc.data_ptr(), ws_sum.data_ptr(), k, n, m,
+                splits, _stream(dev)))
+        else:
+            p = _check_planes(planes, mem_k, with_values=True)
+            _launch("readout_f32", _lib().mr_readout_hilo(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), p.k_hi.data_ptr(),
+                p.k_lo.data_ptr(), p.v_hi.data_ptr(), p.v_lo.data_ptr(), _ptr(mask),
+                stats.data_ptr(), ws_acc.data_ptr(), ws_sum.data_ptr(), k, n, m,
+                splits, _stream(dev)))
         _launch("readout_merge", _lib().mr_readout_merge(
             ws_acc.data_ptr(), ws_sum.data_ptr(), out.data_ptr(), k, n, splits,
             _stream(dev)))
@@ -439,17 +508,19 @@ def memory_read_threshold_cuda(mem_k: torch.Tensor, mem_v: torch.Tensor,
                                valid: Optional[torch.Tensor] = None,
                                n_refine: int = 0) -> torch.Tensor:
     """Launch the phase kernels on the current stream (no
-    synchronisation). Raises on CPU tensors, unsupported dtypes, shapes
-    or layouts, a missing nvcc, or a failed launch."""
+    synchronisation), on fp32 banks after the bank's bf16 planes, which
+    phases A and B share. Raises on CPU tensors, unsupported dtypes,
+    shapes or layouts, a missing nvcc, or a failed launch."""
     if not (mem_k.is_cuda and query_k.is_cuda):
         raise ValueError("memory_read_threshold_cuda takes CUDA tensors")
     if query_k.shape[-1] != CK or query_k.ndim != 2:
         raise ValueError(f"query_k must be (N, {CK}), got {tuple(query_k.shape)}")
     if n_refine < 0:
         raise ValueError(f"n_refine must be >= 0, got {n_refine}")
-    rq = read_query(query_k, mem_k.dtype)
+    rq = read_query(query_k)
     mask = None if valid is None else additive_mask(valid.to(mem_k.device))
-    stats = candidates_cuda(rq, mem_k, mask, top_k)
+    planes = None if mem_k.dtype == torch.bfloat16 else bank_planes_cuda(mem_k, mem_v)
+    stats = candidates_cuda(rq, mem_k, mask, top_k, planes)
     for _ in range(n_refine):
         stats = refine_cuda(rq, mem_k, mask, stats, top_k)
-    return readout_cuda(rq, mem_k, mem_v, mask, stats)
+    return readout_cuda(rq, mem_k, mem_v, mask, stats, planes)

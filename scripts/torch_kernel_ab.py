@@ -1,28 +1,31 @@
 """Compare two versions of mivos_tpu_torch/csrc/memory_read.cu on the card,
 in one process. From the repository root:
 
-    PYTHONPATH=. python scripts/torch_kernel_ab.py OLD.cu NEW.cu [--refine-splits S,..]
+    PYTHONPATH=. python scripts/torch_kernel_ab.py OLD.cu NEW.cu \
+        [--banks bf16,fp32] [--refine-splits S,..]
 
 Builds both sources at once (build.build_library, the flags of build.py)
 into mivos_tpu_torch/_build/, then times phase A (candidates kernel and
 merge), one refine pass (kernel and merge) and phase B (readout kernel
-and merge) on bf16 banks of random keys and values at K = 3, N = 1620
-and M = 1620, 11340 and 21060, with the last 800 slots masked and
-without a mask, in the order OLD, NEW, NEW, OLD (chip_smoke.cuda_ms: CUDA
-events, 20 calls after 3 warm-up calls). Prints one JSON line per shape:
-each side's times in ms, whether the two sources gave equal statistics,
-refined statistics and readouts, and on how many (object, row) pairs
-the refined threshold differs. Each side's refine goes through the
-mr_refine* functions its source exports: mr_refine_bf16 and
-mr_refine_merge, or the older mr_refine(q_hi + q_lo, ..., bf16_bank=1).
-Refine takes the package's number of M ranges, or each of
---refine-splits in turn on both sides. Both sources must export the rest
-of the C interface build.py binds. Needs a CUDA card and nvcc.
+and merge) on banks of random keys and values of each dtype in --banks
+at K = 3, N = 1620 and M = 1620, 11340 and 21060, with the last 800
+slots masked and without a mask, in the order OLD, NEW, NEW, OLD
+(chip_smoke.cuda_ms: CUDA events, 20 calls after 3 warm-up calls).
+Prints one JSON line per shape: each side's times in ms, whether the two
+sources gave equal statistics, refined statistics and readouts, on how
+many (object, row) pairs the refined threshold differs, and the largest
+readout difference over the readout scale. On fp32 banks each side also
+writes the bf16 planes of keys and values once (mr_hilo_planes, timed
+as "planes_ms", as the package makes them once a read), and its phases
+A and B read them. Refine takes the package's number of M ranges, or
+each of --refine-splits in turn on both sides. Both sources must export
+the package's C interface (build._SIGNATURES); to time an older source
+against its own parent, run that checkout's copy of this script. Needs
+a CUDA card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import hashlib
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -37,9 +40,6 @@ from mivos_tpu_torch.ops.cuda.build import BUILD_DIR, NVCC_FLAGS, build_library
 
 K, N, TOP_K, TAIL = 3, 1620, 50, 800
 M_VALUES = (1620, 11340, 21060)
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# mr_refine of sources that predate the split-M refine kernel.
-_LEGACY_REFINE = [_VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP]
 
 
 def build(sources):
@@ -47,64 +47,73 @@ def build(sources):
     def one(src):
         h = hashlib.sha256(Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode())
         kl = build_library([Path(src)], BUILD_DIR / f"ab_{h.hexdigest()[:16]}.so")
-        if "mr_refine_bf16" in kl.missing:
-            kl.lib.mr_refine.argtypes = _LEGACY_REFINE
-            kl.lib.mr_refine.restype = ctypes.c_int
-        other = [name for name in kl.missing if not name.startswith("mr_refine")]
-        if other:
-            raise SystemExit(f"{src} does not export {other}")
+        if kl.missing:
+            raise SystemExit(f"{src} does not export {kl.missing}")
         return kl
 
     with ThreadPoolExecutor(len(sources)) as pool:
         return list(pool.map(one, sources))
 
 
-def phases(kl, rq, mk, mv, mask, bufs):
-    """The three phase calls of one library on one bank, as closures."""
-    lib, m = kl.lib, mk.shape[1]
+def phases(lib, rq, mk, mv, mask, bufs, planes):
+    """The calls of one library on one bank, as closures: the planes of an
+    fp32 bank (None on bf16 banks), phase A, one refine pass and phase B,
+    each kernel with its merge."""
+    m, f32 = mk.shape[1], mk.dtype == torch.float32
     stream = torch.cuda.current_stream().cuda_stream
     mp = None if mask is None else mask.data_ptr()
     wsc, st, wsr, st2, wa, wsum, out, sc, srf, sr = bufs
-    legacy = "mr_refine_bf16" in kl.missing
-    q = rq.hi.float() + rq.lo.float() if legacy else None
+    qh, ql = rq.hi.data_ptr(), rq.lo.data_ptr()
+    kh, kl, vh, vl = (p.data_ptr() for p in planes)
 
     def check(rc):
         if rc != 0:
             raise RuntimeError(f"launch failed: cudaError {rc}")
 
+    def split():
+        for x, hi, lo in ((mk, kh, kl), (mv, vh, vl)):
+            check(lib.mr_hilo_planes(x.data_ptr(), x.stride(0), *x.shape, hi, lo, stream))
+
     def cand():
-        check(lib.mr_candidates_bf16(rq.hi.data_ptr(), rq.lo.data_ptr(), mk.data_ptr(),
-                                     mk.stride(0), mp, wsc.data_ptr(), K, N, m, sc,
-                                     stream))
+        if f32:
+            check(lib.mr_candidates_hilo(qh, ql, kh, kl, mp, wsc.data_ptr(), K, N, m, sc,
+                                         stream))
+        else:
+            check(lib.mr_candidates_bf16(qh, ql, mk.data_ptr(), mk.stride(0), mp,
+                                         wsc.data_ptr(), K, N, m, sc, stream))
         check(lib.mr_candidates_merge(wsc.data_ptr(), st.data_ptr(), K, N, sc, TOP_K,
                                       stream))
 
     def refine():
-        if legacy:
-            check(lib.mr_refine(q.data_ptr(), mk.data_ptr(), mk.stride(0), mp,
-                                st.data_ptr(), st2.data_ptr(), K, N, m, TOP_K, 1, stream))
+        if f32:
+            check(lib.mr_refine_f32(qh, ql, mk.data_ptr(), mk.stride(0), mp,
+                                    st.data_ptr(), st2.data_ptr(), K, N, m, TOP_K, stream))
             return
-        check(lib.mr_refine_bf16(rq.hi.data_ptr(), rq.lo.data_ptr(), mk.data_ptr(),
-                                 mk.stride(0), mp, st.data_ptr(), wsr.data_ptr(), K, N,
-                                 m, srf, stream))
+        check(lib.mr_refine_bf16(qh, ql, mk.data_ptr(), mk.stride(0), mp, st.data_ptr(),
+                                 wsr.data_ptr(), K, N, m, srf, stream))
         check(lib.mr_refine_merge(wsr.data_ptr(), st.data_ptr(), st2.data_ptr(), K, N,
                                   srf, TOP_K, stream))
 
     def read():
-        check(lib.mr_readout_bf16(rq.hi.data_ptr(), rq.lo.data_ptr(), mk.data_ptr(),
-                                  mk.stride(0), mv.data_ptr(), mv.stride(0), mp,
-                                  st.data_ptr(), wa.data_ptr(), wsum.data_ptr(), K, N,
-                                  m, sr, stream))
+        if f32:
+            check(lib.mr_readout_hilo(qh, ql, kh, kl, vh, vl, mp, st.data_ptr(),
+                                      wa.data_ptr(), wsum.data_ptr(), K, N, m, sr, stream))
+        else:
+            check(lib.mr_readout_bf16(qh, ql, mk.data_ptr(), mk.stride(0), mv.data_ptr(),
+                                      mv.stride(0), mp, st.data_ptr(), wa.data_ptr(),
+                                      wsum.data_ptr(), K, N, m, sr, stream))
         check(lib.mr_readout_merge(wa.data_ptr(), wsum.data_ptr(), out.data_ptr(), K, N,
                                    sr, stream))
 
-    return cand, refine, read
+    return (split if f32 else None), cand, refine, read
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("old")
     ap.add_argument("new")
+    ap.add_argument("--banks", default="bf16,fp32",
+                    help="comma-separated bank dtypes to time: bf16, fp32")
     ap.add_argument("--refine-splits", default="",
                     help="comma-separated numbers of M ranges for refine "
                          "(default: the package's choice)")
@@ -114,20 +123,29 @@ def main():
     libs = build([args.old, args.new])
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bank in args.banks.split(","):
+        ab_bank(libs, dev, sms, {"bf16": torch.bfloat16, "fp32": torch.float32}[bank],
+                args.refine_splits)
+
+
+def ab_bank(libs, dev, sms, dtype, refine_splits_arg):
+    """Time and compare both libraries on random banks of `dtype`."""
     rng = np.random.RandomState(0)
     mk_all = torch.from_numpy(rng.randn(K, M_VALUES[-1], cmr.CK).astype(np.float32)
-                              * 0.3).to(dev).bfloat16()
+                              * 0.3).to(dev).to(dtype)
     mv_all = torch.from_numpy(rng.randn(K, M_VALUES[-1], cmr.CV)
-                              .astype(np.float32)).to(dev).bfloat16()
-    rq = cmr.read_query(torch.from_numpy(rng.randn(N, cmr.CK).astype(np.float32))
-                        .to(dev), torch.bfloat16)
+                              .astype(np.float32)).to(dev).to(dtype)
+    query = torch.from_numpy(rng.randn(N, cmr.CK).astype(np.float32)).to(dev)
+    rq = cmr.read_query(query)
     for m in M_VALUES:
         mk, mv = mk_all[:, :m].contiguous(), mv_all[:, :m].contiguous()
+        planes = tuple(torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+                       for x in (mk, mk, mv, mv))
         sc, srf, sr = (cmr.kernel_splits(name, K, N, m, sms)
                        for name in ("candidates", "refine", "readout"))
         refine_splits = ([min(int(s), -(-m // cmr.SPLIT_ALIGN))
-                          for s in args.refine_splits.split(",")]
-                         if args.refine_splits else [srf])
+                          for s in refine_splits_arg.split(",")]
+                         if refine_splits_arg else [srf])
         for masked in (True, False):
             mask = (cmr.additive_mask(torch.arange(m, device=dev) < m - TAIL)
                     if masked else None)
@@ -142,24 +160,30 @@ def main():
                         torch.empty((K, N, cmr.CV), device=dev), sc, srf, sr)
                 times, results = ([], []), []
                 for side in (0, 1, 1, 0):
-                    cand, refine, read = phases(libs[side], rq, mk, mv, mask, bufs)
+                    split, cand, refine, read = phases(libs[side].lib, rq, mk, mv, mask,
+                                                       bufs, planes)
                     if len(results) < 2 and side == len(results):
-                        cand()
-                        refine()
-                        read()
+                        for fn in (split, cand, refine, read):
+                            if fn is not None:
+                                fn()
                         results.append(tuple(bufs[i].clone() for i in (1, 3, 6)))
-                    times[side].append({"candidates_ms": cuda_ms(cand, 20, 3),
-                                        "refine_ms": cuda_ms(refine, 20, 3),
-                                        "readout_ms": cuda_ms(read, 20, 3)})
+                    ms = {"candidates_ms": cuda_ms(cand, 20, 3),
+                          "refine_ms": cuda_ms(refine, 20, 3),
+                          "readout_ms": cuda_ms(read, 20, 3)}
+                    if split is not None:
+                        ms["planes_ms"] = cuda_ms(split, 20, 3)
+                    times[side].append(ms)
                 (st_old, ref_old, out_old), (st_new, ref_new, out_new) = results
                 print(json.dumps({
-                    "M": m, "masked": masked, "splits": [sc, srf, sr],
-                    "old": times[0], "new": times[1],
+                    "bank": str(dtype)[6:], "M": m, "masked": masked,
+                    "splits": [sc, srf, sr], "old": times[0], "new": times[1],
                     "equal_stats": bool(torch.equal(st_old, st_new)),
                     "equal_refined_stats": bool(torch.equal(ref_old, ref_new)),
                     "refined_threshold_rows_differ":
                         int((ref_old[:, 0] != ref_new[:, 0]).sum()),
-                    "equal_readout": bool(torch.equal(out_old, out_new))}),
+                    "equal_readout": bool(torch.equal(out_old, out_new)),
+                    "readout_max_diff_over_scale":
+                        ((out_old - out_new).abs().max() / out_old.abs().mean()).item()}),
                     flush=True)
 
 

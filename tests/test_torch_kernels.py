@@ -5,12 +5,13 @@ and skips on machines without a card. Run on the card with
 `python -m pytest tests/test_torch_kernels.py --noconftest -q`
 (`--noconftest` where jax is not installed: tests/conftest.py imports it).
 
-Both sides run the same algorithm on the same inputs; the kernel's
-affinities are sequential fp32 FMAs (fp32 banks) or two bf16
-tensor-core passes of the split query (bf16 banks), while the plain
-version uses a cuBLAS fp32 matmul, so their affinities differ by ~1e-6
-relative and a few near-tie boundary entries may fall on different
-sides of the threshold. Hence the gate on the MEAN error (1e-4 of the
+Both sides run the same algorithm on the same inputs; the kernels'
+affinities are bf16 passes of the split query (two on bf16 banks, three
+of the split query and keys on fp32 banks) summed in fp32 on the tensor
+cores (by fp32 FMAs in the fp32-bank refine), while the plain version
+sums cuBLAS fp32 matmuls of the same bf16 operands, so their affinities
+differ by ~1e-6 relative and a few near-tie boundary entries may fall on
+different sides of the threshold. Hence the gate on the MEAN error (1e-4 of the
 readout scale) plus the exact-read gate of the JAX kernel check (max
 0.3, mean 1e-3).
 """
@@ -76,13 +77,8 @@ def test_kernel_matches_plain(case, dtype, n_refine):
                                          n_refine=n_refine)
     torch.cuda.synchronize()
     after = cmr.launch_counts()
-    merges = int(dtype == torch.bfloat16)
-    assert after["candidates"] == before["candidates"] + 1
-    assert after["candidates_merge"] == before["candidates_merge"] + merges
-    assert after["refine"] == before["refine"] + n_refine
-    assert after["refine_merge"] == before["refine_merge"] + n_refine * merges
-    assert after["readout"] == before["readout"] + 1
-    assert after["readout_merge"] == before["readout_merge"] + merges
+    assert {name: after[name] - before[name] for name in after} == (
+        cmr.launches_per_read(dtype, n_refine))
     ref = cmr.memory_read_threshold_plain(mk, mv, q, top_k=50, valid=valid,
                                           n_refine=n_refine)
     exact = memory_read(mk, mv, q, top_k=50, valid=valid, backend="exact")
@@ -103,11 +99,28 @@ def test_full_softmax_when_topk_geq_live(dtype):
     valid = torch.arange(1500, device="cuda") < 1200
     out = cmr.memory_read_threshold_cuda(mk, mv, q, top_k=1500, valid=valid)
     plain = cmr.memory_read_threshold_plain(mk, mv, q, top_k=1500, valid=valid)
-    full = memory_read(mk, mv, q, top_k=None, valid=valid, backend="exact")
     torch.testing.assert_close(out, plain, atol=1e-4, rtol=0)
-    # The exact read rounds the NORMALIZED weights to the bank dtype, the
-    # threshold read the unnormalized ones: equal in fp32, within bf16
-    # resolution (2^-8 relative per weight) for bf16 banks.
+    # The full softmax, written out here in float64 on the JAX kernel's
+    # split affinity (`_affinity`): bf16 halves of the scaled query times
+    # the bank's keys, on fp32 banks times the keys' bf16 halves with the
+    # q_lo.k_lo term dropped (~1e-5 relative, which alone moves these
+    # readouts by up to 2.5e-4 against the full fp32 product).
+    qs = q * (1.0 / 128 ** 0.5)
+    q_hi = qs.to(torch.bfloat16).double()
+    q_lo = (qs - qs.to(torch.bfloat16).float()).to(torch.bfloat16).double()
+    if dtype == torch.bfloat16:
+        k64 = mk.double()
+        aff = q_hi @ k64.transpose(1, 2) + q_lo @ k64.transpose(1, 2)
+    else:
+        k_hi = mk.to(torch.bfloat16).double()
+        k_lo = (mk - mk.to(torch.bfloat16).float()).to(torch.bfloat16).double()
+        aff = (q_hi @ k_hi.transpose(1, 2) + q_hi @ k_lo.transpose(1, 2)
+               + q_lo @ k_hi.transpose(1, 2))
+    w = torch.softmax(aff.masked_fill(~valid, float("-inf")), dim=-1)
+    # The weights rounded to the bank dtype after the normalization, as
+    # the exact read rounds them, the threshold read before it: equal in
+    # fp32, within bf16 resolution (2^-8 relative per weight) for bf16.
+    full = (w.to(dtype).double() @ mv.double()).float()
     atol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(out, full, atol=atol, rtol=0)
 
@@ -124,29 +137,33 @@ SPLIT_CASES = [
 ]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("case", SPLIT_CASES,
                          ids=lambda c: f"K{c[0]}-M{c[1]}-N{c[2]}")
-def test_split_kernels_match_plain_and_repeat_bitwise(case):
-    """bf16 banks: the phase A, refine and phase B kernels alone against
-    their plain phases on the same query split, over the M ranges the
-    wrapper picks; two calls give equal bits (the merges sum in a fixed
-    order); each call launches each kernel and its merge once."""
+def test_split_kernels_match_plain_and_repeat_bitwise(case, dtype):
+    """The phase A, refine and phase B kernels alone against their plain
+    phases on the same query split, over the M ranges the wrapper picks;
+    two calls give equal bits (the merges sum in a fixed order); each call
+    launches each kernel and its merge once (fp32 banks: refine has no
+    merge, and the bank's bf16 planes are made once, for phases A and
+    B)."""
     k, m, n, live = case
     rng = np.random.RandomState(m)
-    mk, mv, q = _to_cuda(*_peaky(rng, k, m, n), torch.bfloat16)
+    mk, mv, q = _to_cuda(*_peaky(rng, k, m, n), dtype)
     valid = None if live is None else torch.arange(m, device="cuda") < live
-    rq = cmr.read_query(q, torch.bfloat16)
+    rq = cmr.read_query(q)
     mask = cmr.additive_mask(valid)
     aff = cmr.read_affinity(rq, mk, mask)
     before = cmr.launch_counts()
-    st = cmr.candidates_cuda(rq, mk, mask, 50)
+    planes = None if dtype == torch.bfloat16 else cmr.bank_planes_cuda(mk, mv)
+    st = cmr.candidates_cuda(rq, mk, mask, 50, planes)
     refined = cmr.refine_cuda(rq, mk, mask, st, 50)
-    out = cmr.readout_cuda(rq, mk, mv, mask, st)
+    out = cmr.readout_cuda(rq, mk, mv, mask, st, planes)
     torch.cuda.synchronize()
     after = cmr.launch_counts()
-    assert {name: after[name] - before[name] for name in after} == {
-        "candidates": 1, "candidates_merge": 1, "refine": 1, "refine_merge": 1,
-        "readout": 1, "readout_merge": 1}
+    assert {name: after[name] - before[name] for name in after} == (
+        cmr.launches_per_read(dtype, 1))
     # 1e-3 nats as chip_smoke's gate, plus fp32 rounding at these inputs'
     # affinities (up to ~900 at M = 21060, where one ulp is 6e-5): the
     # tensor cores add the products in another order than cuBLAS.
@@ -159,9 +176,9 @@ def test_split_kernels_match_plain_and_repeat_bitwise(case):
     assert torch.isfinite(out).all()
     assert (out - ref).abs().mean().item() <= 1e-4 * scale
     assert (out - ref).abs().max().item() < 0.3 * scale
-    assert torch.equal(cmr.candidates_cuda(rq, mk, mask, 50), st)
+    assert torch.equal(cmr.candidates_cuda(rq, mk, mask, 50, planes), st)
     assert torch.equal(cmr.refine_cuda(rq, mk, mask, st, 50), refined)
-    assert torch.equal(cmr.readout_cuda(rq, mk, mv, mask, st), out)
+    assert torch.equal(cmr.readout_cuda(rq, mk, mv, mask, st, planes), out)
 
 
 def _bin_collisions(rng):
@@ -202,6 +219,19 @@ def test_strided_bank_prefix_view():
     b = cmr.memory_read_threshold_cuda(view_k.contiguous(),
                                        view_v.contiguous(), q, top_k=50)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_hilo_planes_match_plain_bitwise():
+    """The bf16 planes of an fp32 bank's live prefix (the object axis
+    striding over a longer buffer) equal hilo_planes_plain bit for bit,
+    contiguous."""
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(3, 1500, 512).astype(np.float32) * 3).cuda()
+    view = x[:, :1100]
+    hi, lo = cmr.hilo_planes_cuda(view)
+    ref_hi, ref_lo = cmr.hilo_planes_plain(view)
+    assert hi.is_contiguous() and lo.is_contiguous()
+    assert torch.equal(hi, ref_hi) and torch.equal(lo, ref_lo)
 
 
 def test_bad_inputs_raise():

@@ -223,14 +223,34 @@ def test_bf16_split_affinity_matches_pallas_affinity():
     kb = jnp.asarray(mk).astype(jnp.bfloat16)
     ref = np.stack([np.asarray(j_split_affinity(jnp.asarray(qs.numpy()), kb[i]))
                     for i in range(2)])
-    rq = cmr.read_query(_t(q), torch.bfloat16)
+    rq = cmr.read_query(_t(q))
     assert rq.hi.dtype == rq.lo.dtype == torch.bfloat16
-    assert rq.q is None and rq.rows == 90
+    assert rq.rows == 90
     out = cmr.read_affinity(rq, _t(mk).to(torch.bfloat16), None).numpy()
     assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
-    # q_hi + q_lo is the query to ~2^-17 relative; fp32 banks keep q itself.
+    # q_hi + q_lo is the query to ~2^-17 relative; q_hi is q rounded to bf16.
     assert torch.allclose(rq.hi.float() + rq.lo.float(), qs, rtol=2 ** -16, atol=0)
-    assert cmr.read_query(_t(q), torch.float32).q.equal(qs)
+    assert rq.hi.equal(qs.to(torch.bfloat16))
+
+
+def test_fp32_split_affinity_matches_pallas_affinity():
+    """fp32 banks: the read's affinity (q_hi.k_hi + q_hi.k_lo + q_lo.k_hi)
+    against the JAX kernel's three-pass split on the same inputs, to 1e-5
+    of the largest affinity (fp32 sums of 3 x 128 exact products in
+    another order); and the split against the full fp32 product, to the
+    ~1e-5 relative of the dropped q_lo.k_lo term and the operand splits."""
+    mk, _, q = _peaky(8, k=2, m=600, n=90)
+    qs = cmr.scaled_query(_t(q))
+    ref = np.stack([np.asarray(j_split_affinity(jnp.asarray(qs.numpy()),
+                                                jnp.asarray(mk[i])))
+                    for i in range(2)])
+    out = cmr.read_affinity(cmr.read_query(_t(q)), _t(mk), None).numpy()
+    assert np.abs(out - ref).max() <= 1e-5 * np.abs(ref).max()
+    full = cmr.masked_affinity(qs, _t(mk), None).numpy()
+    assert np.abs(out - full).max() <= 1e-4 * np.abs(full).max()
+    k_hi, k_lo = cmr.hilo_planes_plain(_t(mk))
+    assert k_hi.dtype == k_lo.dtype == torch.bfloat16
+    assert torch.allclose(k_hi.float() + k_lo.float(), _t(mk), rtol=2 ** -16, atol=0)
 
 
 def _split_cuts(m, splits, align):
@@ -278,6 +298,36 @@ def test_split_m_readout_sums_to_unsplit(m, splits):
     ref = ((w.to(torch.bfloat16).double() @ tv.double())
            / w.double().sum(-1, keepdim=True))
     assert ((acc / wsum - ref).abs().max() / ref.abs().max()).item() <= 1e-6
+
+
+@pytest.mark.parametrize("m,splits", [(2500, 3), (2049, 8), (1024, 4),
+                                      (300, 2)])
+def test_split_m_f32_readout_matches_unsplit_fp32_product(m, splits):
+    """fp32 banks: phase B as its kernel computes it -- per 256-aligned M
+    range the three bf16 passes w_hi.v_hi + w_lo.v_hi + w_hi.v_lo and
+    sum(w) of the unrounded fp32 w, the ranges added in order, then one
+    division -- against readout_plain, the unsplit fp32 product, on the
+    read's three-pass affinity: to 1e-5 of the readout's largest entry
+    (the dropped w_lo.v_lo term and the splits are ~2^-17 relative)."""
+    mk, mv, q = _peaky(13, k=2, m=m, n=70)
+    mask = cmr.additive_mask(_t(np.arange(m) < m - 40))
+    aff = cmr.read_affinity(cmr.read_query(_t(q)), _t(mk), mask)
+    stats = cmr.candidates_plain(aff, 50)
+    th, mx = stats[:, 0, :, None], stats[:, 1, :, None]
+    v_hi, v_lo = (p.float() for p in cmr.hilo_planes_plain(_t(mv)))
+    acc = torch.zeros(2, 70, 512)
+    wsum = torch.zeros(2, 70, 1)
+    cuts = _split_cuts(m, splits, 256)
+    assert all(j0 < j1 for j0, j1 in cuts) and cuts[-1][1] == m
+    for j0, j1 in cuts:
+        a = aff[..., j0:j1]
+        w = torch.where(a >= th, torch.exp(a - mx), torch.zeros(()))
+        w_hi, w_lo = (p.float() for p in cmr.hilo_planes_plain(w))
+        acc += (w_hi @ v_hi[:, j0:j1] + w_lo @ v_hi[:, j0:j1]
+                + w_hi @ v_lo[:, j0:j1])
+        wsum += w.sum(-1, keepdim=True)
+    ref = cmr.readout_plain(aff, _t(mv), stats)
+    assert ((acc / wsum - ref).abs().max() / ref.abs().max()).item() <= 1e-5
 
 
 def _top2_by_definition(aff):
@@ -433,8 +483,11 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         mr.memory_read(_t(mk), _t(mv), _t(q), top_k=30, backend="cuda")
     with pytest.raises(ValueError):
-        cmr.candidates_cuda(cmr.read_query(_t(q), torch.float32), _t(mk),
-                            None, 30)
+        cmr.candidates_cuda(cmr.read_query(_t(q)), _t(mk), None, 30)
+    with pytest.raises(ValueError):
+        cmr.hilo_planes_cuda(_t(mk))
+    with pytest.raises(ValueError):
+        cmr.bank_planes_cuda(_t(mk), _t(mv))
     assert cmr.launch_counts() == before
 
 
