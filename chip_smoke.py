@@ -21,9 +21,10 @@ Phases (any failure exits non-zero before the final line):
              plain phase and its bound at M = 1620, 11340 and 21060 (the
              smallest, middle and largest bank of a bench round), one
              line for bf16 banks and one for fp32 banks (with the whole
-             read against the plain and exact reads at M = 21060, and two
-             refine calls that must give equal bits); on fp32 banks also
-             the planes of keys and values, made once a read. Bound: the
+             read against the plain and exact reads at M = 21060, two
+             refine calls that must give equal bits, and each split-M
+             kernel's number of M ranges); on fp32 banks also the planes
+             of keys and values, made once a read. Bound: the
              tensor-core FLOPs at the bf16 peak
              or the bytes at the memory rate, whichever is larger (see
              bound_ms: the affinity as the JAX kernel's bf16 passes, two
@@ -115,7 +116,7 @@ KERNELS = (("candidates_bf16", "candidates", BF16, ("candidates_bf16", "candidat
            ("refine_bf16", "refine", BF16, ("refine_bf16", "refine_merge")),
            ("readout_bf16", "readout", BF16, ("readout_bf16", "readout_merge")),
            ("candidates_f32", "candidates", F32, ("candidates_f32", "candidates_merge")),
-           ("refine_f32", "refine", F32, ("refine_f32",)),
+           ("refine_f32", "refine", F32, ("refine_f32", "refine_merge")),
            ("readout_f32", "readout", F32, ("readout_f32", "readout_merge")),
            ("hilo_planes", "hilo_planes", F32, ("hilo_planes",)))
 TIMING_M = (1620, 11340, 21060)
@@ -252,7 +253,7 @@ def gate_read(mk, mv, q, valid):
     planes = None if mk.dtype == BF16 else cmr.bank_planes_cuda(mk, mv)
     st_k = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
     st_p = cmr.candidates_plain(aff, TOP_K)
-    ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K)
+    ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K, planes)
     ref_p = cmr.refine_plain(aff, st_k, TOP_K)
     out_k = cmr.readout_cuda(rq, mk, mv, mask, st_k, planes)
     out_p = cmr.readout_plain(aff, mv, st_k)
@@ -268,8 +269,8 @@ def gate_read(mk, mv, q, valid):
             (a.float() - b.float()).abs().max().item() for a, b in
             zip(planes, cmr.hilo_planes_plain(mk) + cmr.hilo_planes_plain(mv)))
         check(errs["hilo_planes"] == 0.0, f"bf16 planes vs plain {kernel_rep}")
-    # Thresholds in nats: affinity rounding (fp32 FMA or tensor-core
-    # accumulation order) may move a bisection step only where a bin value
+    # Thresholds in nats: affinity rounding (the tensor cores' accumulation
+    # order against cuBLAS's) may move a bisection step only where a bin value
     # sits within ~1e-6 of a midpoint, i.e. at the last steps' ~1e-5
     # resolution.
     check(errs["candidates"] <= 1e-3, f"candidates vs plain {kernel_rep}")
@@ -387,7 +388,7 @@ def phase_timing(mk_all, mv_all, q, dtype):
             return lambda: fn(cmr.read_affinity(rq, mk, mask))
 
         ms = {"candidates": cuda_ms(lambda: cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)),
-              "refine": cuda_ms(lambda: cmr.refine_cuda(rq, mk, mask, st, TOP_K)),
+              "refine": cuda_ms(lambda: cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes)),
               "readout": cuda_ms(lambda: cmr.readout_cuda(rq, mk, mv, mask, st, planes))}
         plain_ms = {
             "candidates": cuda_ms(plain_phase(lambda a: cmr.candidates_plain(a, TOP_K)), 3, 1),
@@ -402,12 +403,14 @@ def phase_timing(mk_all, mv_all, q, dtype):
                "bound_ms": {name: b[0] for name, b in bounds.items()},
                "bound_by": {name: b[1] for name, b in bounds.items()},
                "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms}}
-        refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K)
+        refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes)
         rep["refine_repeats_bitwise"] = bool(torch.equal(
-            cmr.refine_cuda(rq, mk, mask, st, TOP_K), refined))
+            cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes), refined))
         check(rep["refine_repeats_bitwise"], f"refine differs between calls at M = {m}")
-        rep["splits"] = {name: cmr.kernel_splits(name, k, n, m, sms)
-                         for name in ("candidates", "refine", "readout")}
+        rep["splits"] = {
+            "candidates": cmr.kernel_splits("candidates", k, n, m, sms),
+            "refine": cmr.kernel_splits("refine" if bf16 else "refine_f32", k, n, m, sms),
+            "readout": cmr.kernel_splits("readout", k, n, m, sms)}
         if m == TIMING_M[-1]:
             rep.update({
                 "kernel_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
@@ -626,6 +629,7 @@ def session_f32(dev, images, masks, mem):
     refine_net.read_refine = 1
     core = InferenceCore(refine_net, fuse, images, K, mem=mem, device=dev)
     dt_refine, reads_refine, counts = run_round(core, masks[6], 0, counts)
+    check(reads_refine == T - 1, f"read_refine=1 round: {reads_refine} reads")
     log(json.dumps({"metric": "propagation_fps_480p_3obj_fp32", "frames_s": (T - 1) / dt,
                     "round_s": dt, "read_refine1_round_s": dt_refine,
                     "reads": reads + reads_refine, "bank_slots": core.bank.num_slots,

@@ -15,7 +15,7 @@
 //     candidates_f32_kernel + candidates_merge_kernel    fp32 banks
 //   _refine_kernel (exact-count threshold tightening):
 //     refine_bf16_kernel + refine_merge_kernel           bf16 banks
-//     refine_kernel                                      fp32 banks
+//     refine_hilo_kernel + refine_merge_kernel           fp32 banks
 //   _readout_kernel (phase B: thresholded exp, w.V):
 //     readout_bf16_kernel + readout_merge_kernel         bf16 banks
 //     readout_f32_kernel + readout_merge_kernel          fp32 banks
@@ -128,7 +128,7 @@
 // costs ~10% weight error on trained banks). The readout's w.V is
 // fp32-accurate the same way: w_hi.v_hi + w_lo.v_hi + w_hi.v_lo, with
 // sum(w) kept from the unrounded fp32 w. hilo_planes_kernel writes the
-// keys' and values' bf16 planes once a read, for both phases (a pass over
+// keys' and values' bf16 planes once a read, for all phases (a pass over
 // the bank at the memory rate, ~0.1 ms at K = 3, M = 21060), so the kernels
 // stage bf16 planes with cp.async exactly as the bf16-bank kernels stage
 // a bf16 bank, and split M in the same 256-aligned ranges with the same
@@ -160,19 +160,29 @@
 //   memory after an fp32 stage would need the fp32 chunk (80 KB at 32
 //   keys) beside its planes: 282 KB with two stages.
 //
-//   refine_kernel (still the first version's design: one block per
-//   (object, 16 query rows) over all of M, keys staged as fp32): the same
-//   three-term split by sequential fp32 FMAs, the keys' planes formed from
-//   the staged fp32 keys, the query halves staged as fp32. Bf16 products
-//   are exact in fp32, so all three phases rank one function up to the
-//   order of fp32 additions.
+//   refine_hilo_kernel: refine_bf16_kernel with both key planes in its
+//   ring and three passes a K step. Two stages x two planes of 64-key
+//   chunks take 64 KB; the query halves (32 KB in the 128-byte swizzle)
+//   are staged into the ring's second stage and loaded into registers
+//   before chunk 1 needs it, so a block holds 64.5 KB and three share an
+//   SM, which hides one block's epilogue and staging behind another's
+//   wgmma as in the bf16 kernel. At the timing shape its 3 passes are
+//   3 x 26.2 = 78.6 GFLOP, 0.0795 ms at 989 TFLOP/s, against 33.4 MB of
+//   device memory (0.010 ms): compute bound. Its 26 row tiles read each
+//   object's 10.8 MB of key planes from L2, 0.84 GB L2->SM, twice the
+//   bf16 kernel's. Measured (with the merge, H100 SXM at 700 W): 0.186 ms,
+//   43% of that bound. Tried and slower: 32-key chunks on
+//   wgmma.m64n32k16 with the query apart (three blocks an SM, twice the
+//   barriers a key), 20%; 64-key chunks with the query apart (96.5 KB,
+//   two blocks an SM), 44%.
 //
 // All arithmetic that decides the selection (bisection midpoints, refine
 // edges) uses explicitly rounded fp32 operations, so that given equal
 // affinities kernel and plain PyTorch version pick the same set.
 //
-// Left undone: TMA for the staging (cp.async stages everything); the
-// fp32-bank refine on the tensor cores; phases A and B are not fused.
+// Left undone: TMA for the staging (cp.async stages everything); phases
+// A and B are not fused; warp specialization (a producer warp, mbarriers)
+// in the readouts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -186,11 +196,7 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int CK = 128;          // key width
 constexpr int CV = 512;          // value width
-constexpr int TN = 16;           // query rows per block (fp32-bank refine)
 constexpr int THREADS = 256;
-constexpr int KC = 128;          // keys per affinity chunk (fp32-bank refine)
-constexpr int KS = CK + 4;       // shared row stride of q/k tiles (floats)
-constexpr int AFS = KC + 16;     // shared row stride of refine's affinity tile
 constexpr int C_BINS = 256;      // candidate bins per partition
 constexpr int TPU_SLICES = 4;    // 256-wide slices per TPU tile (TM = 1024)
 constexpr int ROLL = 85;         // partition-2 roll per slice (coprime to 256)
@@ -199,88 +205,6 @@ constexpr float THRESH_RANGE = 30.0f;
 constexpr int BISECT_ITERS = 22;
 constexpr int N_EDGES = 7;
 constexpr float REFINE_CAP = 0.15f;
-
-// Copy `rows` rows of `width` elements starting at row j0 into shared
-// memory as fp32 with row stride `stride`; rows >= M are zero.
-template <int ROWS, int WIDTH, int STRIDE>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, int M,
-                                          int j0, float* dst) {
-  constexpr int PER_ROW = WIDTH / 4;
-  for (int i = threadIdx.x; i < ROWS * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = i % PER_ROW;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j0 + r < M)
-      v = reinterpret_cast<const float4*>(src + (size_t)(j0 + r) * WIDTH)[c];
-    *reinterpret_cast<float4*>(dst + r * STRIDE + c * 4) = v;
-  }
-}
-
-// Copy query rows n0 .. n0 + TN of the halves into shared memory as fp32
-// with row stride KS; rows >= N are zero.
-__device__ __forceinline__ void load_query_halves(const bf16* __restrict__ q_hi,
-                                                  const bf16* __restrict__ q_lo, int N,
-                                                  int n0, float* qh, float* ql) {
-  for (int i = threadIdx.x; i < TN * CK; i += THREADS) {
-    const int r = i / CK, c = i % CK;
-    const bool live = n0 + r < N;
-    const size_t at = (size_t)(n0 + r) * CK + c;
-    qh[r * KS + c] = live ? __bfloat162float(q_hi[at]) : 0.f;
-    ql[r * KS + c] = live ? __bfloat162float(q_lo[at]) : 0.f;
-  }
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// 16 x 128 tile of the three-term split affinity: thread t owns rows
-// 4*(t/64) .. +3 and keys (t%64) and (t%64)+64 of the chunk. Per element
-// d, k_hi = bf16(k), k_lo = bf16(k - k_hi), then sequential fp32 FMAs
-// q_hi.k_hi, q_hi.k_lo, q_lo.k_hi (bf16 products, exact in fp32).
-__device__ __forceinline__ void affinity_tile(const float* qh, const float* ql,
-                                              const float* ks, float acc[4][2]) {
-  const int rg = threadIdx.x >> 6, kg = threadIdx.x & 63;
-  const float* kr[2] = {ks + kg * KS, ks + (kg + 64) * KS};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = 0.f;
-#pragma unroll 2
-  for (int d = 0; d < CK; d += 4) {
-    float kh[2][4], kl[2][4];
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const float4 v = *reinterpret_cast<const float4*>(kr[jj] + d);
-      const float e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        kh[jj][u] = bf16_round(e[u]);
-        kl[jj][u] = bf16_round(__fsub_rn(e[u], kh[jj][u]));
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 xh = *reinterpret_cast<const float4*>(qh + (rg * 4 + i) * KS + d);
-      const float4 xl = *reinterpret_cast<const float4*>(ql + (rg * 4 + i) * KS + d);
-      const float h[4] = {xh.x, xh.y, xh.z, xh.w}, l[4] = {xl.x, xl.y, xl.z, xl.w};
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          acc[i][jj] = fmaf(h[u], kh[jj][u], acc[i][jj]);
-          acc[i][jj] = fmaf(h[u], kl[jj][u], acc[i][jj]);
-          acc[i][jj] = fmaf(l[u], kh[jj][u], acc[i][jj]);
-        }
-    }
-  }
-}
-
-// Masked affinity of key j: the dot product plus the additive mask,
-// -1e30 past the end of the bank (the Pallas wrapper pads M with -1e30 in
-// the mask).
-__device__ __forceinline__ float masked(float dot, const float* __restrict__ mask,
-                                        int j, int M) {
-  if (j >= M) return NEG_INF;
-  return mask ? dot + mask[j] : dot;
-}
 
 // top-2 insert into a sorted pair (a >= b).
 __device__ __forceinline__ void insert2(float& a, float& b, float x) {
@@ -348,71 +272,6 @@ __device__ __forceinline__ void refine_update(const int cnt[N_EDGES], const floa
   sout[n] = th_new;
   sout[N + n] = mx;
   sout[2 * N + n] = nok < N_EDGES ? fminf(ub, __fadd_rn(th_new, delta)) : ub;
-}
-
-// Refine for fp32 banks. Replaces _refine_kernel
-// (mivos_tpu/ops/pallas/memory_read.py:221). Bounded by the affinity's
-// FMAs (three a product term, 3 x 2 x 16 x M x 128 a block) and the
-// M x 128 fp32 keys each block streams; 16 threads share a row and
-// reduce their integer counts by shuffles.
-__global__ void __launch_bounds__(THREADS)
-refine_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
-              const float* __restrict__ keys, long long stride_k,
-              const float* __restrict__ mask, const float* __restrict__ stats_in,
-              float* __restrict__ stats_out, int N, int M, int top_k) {
-  extern __shared__ float4 smem4[];
-  float* qh = reinterpret_cast<float*>(smem4);  // TN x KS
-  float* ql = qh + TN * KS;                       // TN x KS
-  float* ks = ql + TN * KS;                       // KC x KS
-  float* aff = ks + KC * KS;                      // TN x AFS
-  float* edges = aff + TN * AFS;                  // TN x N_EDGES
-  const int k = blockIdx.y, n0 = blockIdx.x * TN, tid = threadIdx.x;
-  const int rg = tid >> 6, kg = tid & 63;
-  const float* kb = keys + (size_t)k * stride_k;
-  const float* sin = stats_in + (size_t)k * 3 * N;
-  load_query_halves(q_hi, q_lo, N, n0, qh, ql);
-  if (tid < TN) {
-    const int n = min(n0 + tid, N - 1);
-    const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
-#pragma unroll
-    for (int e = 0; e < N_EDGES; ++e) edges[tid * N_EDGES + e] = refine_edge(th, delta, e);
-  }
-
-  const int row = tid >> 4, col = tid & 15;
-  int cnt[N_EDGES];
-#pragma unroll
-  for (int e = 0; e < N_EDGES; ++e) cnt[e] = 0;
-  for (int j0 = 0; j0 < M; j0 += KC) {
-    __syncthreads();
-    load_rows<KC, CK, KS>(kb, M, j0, ks);
-    __syncthreads();
-    float acc[4][2];
-    affinity_tile(qh, ql, ks, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int c = kg + 64 * jj;
-        aff[(rg * 4 + i) * AFS + c] = masked(acc[i][jj], mask, j0 + c, M);
-      }
-    __syncthreads();
-    float e_row[N_EDGES];
-#pragma unroll
-    for (int e = 0; e < N_EDGES; ++e) e_row[e] = edges[row * N_EDGES + e];
-#pragma unroll
-    for (int u = 0; u < KC / 16; ++u) {
-      const float a = aff[row * AFS + col + 16 * u];
-#pragma unroll
-      for (int e = 0; e < N_EDGES; ++e) cnt[e] += a >= e_row[e];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < N_EDGES; ++e)
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) cnt[e] += __shfl_xor_sync(0xffffffffu, cnt[e], o);
-
-  if (col == 0 && n0 + row < N)
-    refine_update(cnt, sin, stats_out + (size_t)k * 3 * N, n0 + row, N, top_k);
 }
 
 // ---------------------------------------------------------------------------
@@ -1372,6 +1231,70 @@ __device__ __forceinline__ void wgmma_64x64x16_rs(float d[32], const uint32_t a[
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// Refine's per-thread state in both refine kernels: lane (g, t4) of warp
+// w owns rows n0 + 16*w + g and + 8 (h = 0, 1), their 7 edges and counts.
+__device__ __forceinline__ void refine_edges(const float* sin, int N, int row0,
+                                             float edge[2][N_EDGES], int cnt[2][N_EDGES]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = min(row0 + 8 * h, N - 1);
+    const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
+#pragma unroll
+    for (int e = 0; e < N_EDGES; ++e) {
+      edge[h][e] = refine_edge(th, delta, e);
+      cnt[h][e] = 0;
+    }
+  }
+}
+
+// Refine's counts from one chunk's 64 x KCH accumulator (the m16n8
+// fragment per n-tile): one compare per entry against its row's lowest
+// edge; the edges are nondecreasing, so an entry below it reaches none.
+// Keys from `live` on (past M, inside the last chunk) count for nothing.
+template <int KCH>
+__device__ __forceinline__ void refine_count(const float* acc, const float* sm, int live,
+                                             float edge[2][N_EDGES],
+                                             int cnt[2][N_EDGES]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < KCH / 8; ++nt) {
+    const int col = nt * 8 + t4 * 2;
+    const float2 mk = sm ? *reinterpret_cast<const float2*>(sm + col)
+                         : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        float a = acc[4 * nt + 2 * h + e2];
+        if (sm) a += e2 ? mk.y : mk.x;
+        if (a >= edge[h][0] && col + e2 < live) {
+#pragma unroll
+          for (int e = 0; e < N_EDGES; ++e) cnt[h][e] += a >= edge[h][e];
+        }
+      }
+  }
+}
+
+// Per row the four lanes of a quad hold its columns: they add their
+// counts, and lane t4 = 0 writes the row's 7 to `o` (the block's object
+// and range in the (S, K, N, 7) workspace).
+__device__ __forceinline__ void refine_write_counts(int cnt[2][N_EDGES], int* o, int N,
+                                                    int row0) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int e = 0; e < N_EDGES; ++e) {
+      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 1);
+      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 2);
+    }
+    const int n = row0 + 8 * h;
+    if ((threadIdx.x & 3) == 0 && n < N) {
+#pragma unroll
+      for (int e = 0; e < N_EDGES; ++e) o[(size_t)n * N_EDGES + e] = cnt[h][e];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(RF_THREADS, RF_SM_BLOCKS)
 refine_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
                    const bf16* __restrict__ keys, long long stride_k,
@@ -1384,25 +1307,17 @@ refine_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
   float* smask = reinterpret_cast<float*>(sql + RF_ROWS * QSB);  // 2 stages x RF_KC
   const int n0 = blockIdx.x * RF_ROWS, s = blockIdx.y, k = blockIdx.z, K = gridDim.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
+  const int g = lane >> 2;
   const bf16* kb = keys + (size_t)k * stride_k;
   const float* sin = stats_in + (size_t)k * 3 * N;
   int j_begin, j_end;
   split_range(M, S, s, j_begin, j_end);
   const int nch = (j_end - j_begin + RF_KC - 1) / RF_KC;
 
+  const int row0 = n0 + warp * 16 + g;   // this lane's rows: row0 and row0 + 8
   float edge[2][N_EDGES];
   int cnt[2][N_EDGES];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = min(n0 + warp * 16 + g + 8 * h, N - 1);
-    const float th = sin[n], delta = refine_delta(th, sin[2 * N + n]);
-#pragma unroll
-    for (int e = 0; e < N_EDGES; ++e) {
-      edge[h][e] = refine_edge(th, delta, e);
-      cnt[h][e] = 0;
-    }
-  }
+  refine_edges(sin, N, row0, edge, cnt);
 
   stage_rows<RF_ROWS, CK, QSB, RF_THREADS>(sqh, q_hi, n0, N);
   stage_rows<RF_ROWS, CK, QSB, RF_THREADS>(sql, q_lo, n0, N);
@@ -1446,45 +1361,109 @@ refine_bf16_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
     }
     wgmma_commit_and_wait();
     wgmma_fence_operands<32>(acc);
-    // One compare per entry against its row's lowest edge; the edges are
-    // nondecreasing, so an entry below it reaches none. Keys past M (the
-    // bank's end, inside the last chunk) count for nothing.
-    const float* sm = mask ? smask + buf * RF_KC : nullptr;
-    const int live = M - j0;
-#pragma unroll
-    for (int nt = 0; nt < RF_KC / 8; ++nt) {
-      const int col = nt * 8 + t4 * 2;
-      const float2 mk = sm ? *reinterpret_cast<const float2*>(sm + col)
-                           : make_float2(0.f, 0.f);
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          float a = acc[4 * nt + 2 * h + e2];
-          if (sm) a += e2 ? mk.y : mk.x;
-          if (a >= edge[h][0] && col + e2 < live) {
-#pragma unroll
-            for (int e = 0; e < N_EDGES; ++e) cnt[h][e] += a >= edge[h][e];
-          }
-        }
-    }
+    refine_count<RF_KC>(acc, mask ? smask + buf * RF_KC : nullptr, M - j0, edge, cnt);
   }
+  refine_write_counts(cnt, ws + ((size_t)s * K + k) * N * N_EDGES, N, row0);
+}
 
-  // Per row: the four lanes of a quad hold its columns.
+// Refine for fp32 banks. Replaces _refine_kernel
+// (mivos_tpu/ops/pallas/memory_read.py:221). refine_bf16_kernel on the
+// keys' bf16 planes: 64 query rows and one warpgroup a block, 64-key
+// chunks of both planes (and the mask's chunk) through the two-stage
+// cp.async ring, and per K step the three passes q_hi.k_hi, q_hi.k_lo,
+// q_lo.k_hi on wgmma.m64n64k16 into one fp32 accumulator, in
+// readout_f32_kernel's order. The query halves are staged once, K-major
+// in the 128-byte swizzle, into the ring's second stage, loaded from
+// there into registers as wgmma's A fragments, and the ring takes the
+// stage back for chunk 1: 64.5 KB a block, three blocks an SM, as the
+// bf16 kernel. Writes (S, K, N, 7) int32 counts.
+constexpr int RFH_KC = 64;
+constexpr size_t kRefineHiloSmem =
+    (size_t)4 * RFH_KC * CK * sizeof(bf16) + 2 * RFH_KC * sizeof(float);
+constexpr int RFH_SM_BLOCKS = (int)(228 * 1024 / (kRefineHiloSmem + 1024));
+static_assert(SPLIT_ALIGN % RFH_KC == 0, "chunks tile the M ranges");
+static_assert(RFH_KC >= RF_ROWS, "the query halves fit the ring's second stage");
+
+__global__ void __launch_bounds__(RF_THREADS, RFH_SM_BLOCKS)
+refine_hilo_kernel(const bf16* __restrict__ q_hi, const bf16* __restrict__ q_lo,
+                   const bf16* __restrict__ k_hi, const bf16* __restrict__ k_lo,
+                   const float* __restrict__ mask, const float* __restrict__ stats_in,
+                   int* __restrict__ ws, int N, int M, int S) {
+  constexpr int KP = RFH_KC * CK;   // one plane's chunk
+  extern __shared__ __align__(1024) uint4 smem_u4[];
+  bf16* sk = reinterpret_cast<bf16*>(smem_u4);  // [stage][hi, lo] x RFH_KC x CK, K-major swizzled
+  bf16* sqh = sk + 2 * KP;                      // RF_ROWS x CK, K-major swizzled, in stage 1
+  bf16* sql = sqh + RF_ROWS * CK;               // until the halves are in registers
+  float* smask = reinterpret_cast<float*>(sk + 4 * KP);  // 2 stages x RFH_KC
+  const int n0 = blockIdx.x * RF_ROWS, s = blockIdx.y, k = blockIdx.z, K = gridDim.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const bf16* kh = k_hi + (size_t)k * M * CK;
+  const bf16* kl = k_lo + (size_t)k * M * CK;
+  const float* sin = stats_in + (size_t)k * 3 * N;
+  int j_begin, j_end;
+  split_range(M, S, s, j_begin, j_end);
+  const int nch = (j_end - j_begin + RFH_KC - 1) / RFH_KC;
+
+  const int row0 = n0 + warp * 16 + g;   // this lane's rows: row0 and row0 + 8
+  float edge[2][N_EDGES];
+  int cnt[2][N_EDGES];
+  refine_edges(sin, N, row0, edge, cnt);
+
+  auto stage = [&](int buf, int j0) {
+    stage_rows_sw128<RFH_KC, RF_THREADS>(sk + 2 * buf * KP, kh, j0, M);
+    stage_rows_sw128<RFH_KC, RF_THREADS>(sk + (2 * buf + 1) * KP, kl, j0, M);
+    if (mask) stage_mask<RFH_KC>(smask + buf * RFH_KC, mask, j0, M);
+  };
+  stage_rows_sw128<RF_ROWS, RF_THREADS>(sqh, q_hi, n0, N);
+  stage_rows_sw128<RF_ROWS, RF_THREADS>(sql, q_lo, n0, N);
+  stage(0, j_begin);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  // The A fragment of K step kk: lane l gives row 16*warp + l%16, 16-byte
+  // chunk 2*(kk%4) + l/16 of half kk/4, stored at chunk ^ (row % 8).
+  uint32_t ah[CK / 16][4], al[CK / 16][4];
+  const int qr = warp * 16 + (lane & 15);
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int e = 0; e < N_EDGES; ++e) {
-      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 1);
-      cnt[h][e] += __shfl_xor_sync(0xffffffffu, cnt[h][e], 2);
-    }
-    const int n = n0 + warp * 16 + g + 8 * h;
-    if (t4 == 0 && n < N) {
-      int* o = ws + (((size_t)s * K + k) * N + n) * N_EDGES;
-#pragma unroll
-      for (int e = 0; e < N_EDGES; ++e) o[e] = cnt[h][e];
-    }
+  for (int kk = 0; kk < CK / 16; ++kk) {
+    const int at = (kk >> 2) * RF_ROWS * 128 + qr * 128 +
+                   (((2 * (kk & 3) + (lane >> 4)) ^ (qr & 7)) << 4);
+    ldmatrix_x4(ah[kk], reinterpret_cast<const char*>(sqh) + at);
+    ldmatrix_x4(al[kk], reinterpret_cast<const char*>(sql) + at);
   }
+  for (int c = 0; c < nch; ++c) {
+    const int j0 = j_begin + c * RFH_KC, buf = c & 1;
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();   // chunk c landed; chunk c-1's stage (at c = 0 the query) is free
+    if (c + 1 < nch) {
+      stage(buf ^ 1, j0 + RFH_KC);
+      cp_async_commit();
+    }
+    // Three-pass split affinity: per K step kk (key columns 16*kk.., in
+    // half kk/4 at byte 32*(kk%4)) q_hi.k_hi, q_hi.k_lo, then q_lo.k_hi.
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    const char* khc = reinterpret_cast<const char*>(sk + 2 * buf * KP);
+    const char* klc = reinterpret_cast<const char*>(sk + (2 * buf + 1) * KP);
+    wgmma_fence_operands<32>(acc);
+    wgmma_fence();
+    wgmma_fence_operands<32>(acc);
+#pragma unroll
+    for (int kk = 0; kk < CK / 16; ++kk) {
+      const int ko = (kk >> 2) * RFH_KC * 128 + (kk & 3) * 32;
+      const uint64_t dkh = gmma_desc_sw128(khc + ko, 16, SW_ATOM);
+      wgmma_64x64x16_rs(acc, ah[kk], dkh);
+      wgmma_64x64x16_rs(acc, ah[kk], gmma_desc_sw128(klc + ko, 16, SW_ATOM));
+      wgmma_64x64x16_rs(acc, al[kk], dkh);
+    }
+    wgmma_commit_and_wait();
+    wgmma_fence_operands<32>(acc);
+    refine_count<RFH_KC>(acc, mask ? smask + buf * RFH_KC : nullptr, M - j0, edge, cnt);
+  }
+  refine_write_counts(cnt, ws + ((size_t)s * K + k) * N * N_EDGES, N, row0);
 }
 
 // Merge of refine's ranges: per (object, row) the sum of the S ranges'
@@ -1506,9 +1485,6 @@ refine_merge_kernel(const int* __restrict__ ws, const float* __restrict__ stats_
 }
 
 // ---------------------------------------------------------------------------
-
-constexpr size_t kRefineSmem =
-    (2 * TN * KS + KC * KS + TN * AFS + TN * N_EDGES) * sizeof(float);
 
 template <typename Kernel>
 int set_smem(Kernel kernel, size_t bytes) {
@@ -1571,18 +1547,6 @@ int mr_candidates_merge(const void* ws, void* stats, int K, int N, int S,
   return (int)cudaGetLastError();
 }
 
-int mr_refine_f32(const void* q_hi, const void* q_lo, const void* keys,
-                  long long stride_k, const void* mask, const void* stats_in,
-                  void* stats_out, int K, int N, int M, int top_k, void* stream) {
-  if (int e = set_smem(refine_kernel, kRefineSmem)) return e;
-  dim3 grid((N + TN - 1) / TN, K);
-  refine_kernel<<<grid, THREADS, kRefineSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
-      static_cast<const float*>(keys), stride_k, static_cast<const float*>(mask),
-      static_cast<const float*>(stats_in), static_cast<float*>(stats_out), N, M, top_k);
-  return (int)cudaGetLastError();
-}
-
 int mr_refine_bf16(const void* q_hi, const void* q_lo, const void* keys,
                    long long stride_k, const void* mask, const void* stats_in,
                    void* ws, int K, int N, int M, int S, void* stream) {
@@ -1593,6 +1557,20 @@ int mr_refine_bf16(const void* q_hi, const void* q_lo, const void* keys,
       static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
       static_cast<const bf16*>(keys), stride_k, static_cast<const float*>(mask),
       static_cast<const float*>(stats_in), static_cast<int*>(ws), N, M, S);
+  return (int)cudaGetLastError();
+}
+
+int mr_refine_hilo(const void* q_hi, const void* q_lo, const void* k_hi, const void* k_lo,
+                   const void* mask, const void* stats_in, void* ws, int K, int N, int M,
+                   int S, void* stream) {
+  if (int e = set_smem(refine_hilo_kernel, kRefineHiloSmem)) return e;
+  dim3 grid((N + RF_ROWS - 1) / RF_ROWS, S, K);
+  refine_hilo_kernel<<<grid, RF_THREADS, kRefineHiloSmem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q_hi), static_cast<const bf16*>(q_lo),
+      static_cast<const bf16*>(k_hi), static_cast<const bf16*>(k_lo),
+      static_cast<const float*>(mask), static_cast<const float*>(stats_in),
+      static_cast<int*>(ws), N, M, S);
   return (int)cudaGetLastError();
 }
 

@@ -34,7 +34,7 @@ _SIGNATURES = {
     "mr_candidates_hilo": [_VP] * 6 + [_I] * 4 + [_VP],
     "mr_candidates_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_candidates_merge": [_VP, _VP, _I, _I, _I, _I, _VP],
-    "mr_refine_f32": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "mr_refine_hilo": [_VP] * 7 + [_I] * 4 + [_VP],
     "mr_refine_bf16": [_VP, _VP, _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_refine_merge": [_VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "mr_readout_hilo": [_VP] * 10 + [_I] * 4 + [_VP],

@@ -28,20 +28,20 @@ q_lo.k, the product of q_hi + q_lo (exact in fp32) with the keys up to
 fp32 rounding. On fp32 banks the keys split the same way, k_hi =
 bf16(k), k_lo = bf16(k - k_hi), and a = q_hi.k_hi + q_hi.k_lo + q_lo.k_hi
 (the q_lo.k_lo term dropped, ~1e-5 relative). The kernels of all three
-phases run it as bf16 passes into one fp32 accumulator (tensor cores;
-fp32 FMAs of the same bf16 products in the fp32-bank refine), so that all
-phases rank the same affinities; the plain version as fp32 products
-summed (as `_affinity` sums its passes). `read_query` makes the query of
-one read once. On fp32 banks phase B's w.V is fp32-accurate from three
-bf16 passes, w_hi.v_hi + w_lo.v_hi + w_hi.v_lo, against the plain
-version's fp32 product. The fp32-bank phase A and B kernels read the
-bf16 planes of the keys and values (`BankPlanes`), which
-`memory_read_threshold_cuda` has `bank_planes_cuda` write once a read.
+phases run it as bf16 passes into one fp32 accumulator on the tensor
+cores, so that all phases rank the same affinities; the plain version as
+fp32 products summed (as `_affinity` sums its passes). `read_query`
+makes the query of one read once. On fp32 banks phase B's w.V is
+fp32-accurate from three bf16 passes, w_hi.v_hi + w_lo.v_hi +
+w_hi.v_lo, against the plain version's fp32 product. The fp32-bank
+kernels read the bf16 planes of the keys and values (`BankPlanes`),
+which `memory_read_threshold_cuda` has `bank_planes_cuda` write once a
+read.
 
-Phases A and B, and refine on bf16 banks, split the memory axis into S
-ranges cut at multiples of 256 keys (`split_count`), write per-range
-partials to a workspace and merge them in a second kernel, in a fixed
-order of ranges.
+The kernels of all three phases split the memory axis into S ranges cut
+at multiples of 256 keys (`split_count`), write per-range partials to a
+workspace and merge them in a second kernel, in a fixed order of
+ranges.
 
 Each phase has a kernel wrapper (`*_cuda`: CUDA tensors only, raises on
 anything else, counts its launches) and a plain version (`*_plain`:
@@ -69,11 +69,12 @@ REFINE_CAP = 0.15
 CK, CV = 128, 512
 SPLIT_ALIGN = C_BINS   # M ranges of the split-M kernels start at multiples of this
 # Per split-M kernel (csrc/memory_read.cu; both bank dtypes of phases A and
-# B): query rows per block, blocks an SM holds at once (its shared
-# memory), most M ranges.
-BLOCK_ROWS = {"candidates": 32, "refine": 64, "readout": 64}
-SM_BLOCKS = {"candidates": 1, "refine": 3, "readout": 1}
-MAX_SPLITS = {"candidates": 4, "refine": 8, "readout": 8}
+# B, refine per bank dtype: "refine" on bf16 banks, "refine_f32"): query
+# rows per block, blocks an SM holds at once (its shared memory), most M
+# ranges.
+BLOCK_ROWS = {"candidates": 32, "refine": 64, "refine_f32": 64, "readout": 64}
+SM_BLOCKS = {"candidates": 1, "refine": 3, "refine_f32": 3, "readout": 1}
+MAX_SPLITS = {"candidates": 4, "refine": 8, "refine_f32": 8, "readout": 8}
 FULL_WAVES = 0.85      # split_count's target share of full waves
 
 # Launches of each kernel since the last reset: a wrapper adds one
@@ -87,15 +88,16 @@ _LAUNCHES: Dict[str, int] = {
 def launches_per_read(bank_dtype: torch.dtype, n_refine: int) -> Dict[str, int]:
     """The launches of each counter one `memory_read_threshold_cuda` call
     makes on a bank of `bank_dtype`: phases A and B with their merges
-    once, refine n_refine times (on bf16 banks with its merge); on fp32
-    banks the planes kernel once for the keys and once for the values."""
+    once, refine with its merge n_refine times; on fp32 banks the planes
+    kernel once for the keys and once for the values."""
     if bank_dtype == torch.bfloat16:
         per = {"candidates_bf16": 1, "candidates_merge": 1,
                "refine_bf16": n_refine, "refine_merge": n_refine,
                "readout_bf16": 1, "readout_merge": 1}
     else:
         per = {"hilo_planes": 2, "candidates_f32": 1, "candidates_merge": 1,
-               "refine_f32": n_refine, "readout_f32": 1, "readout_merge": 1}
+               "refine_f32": n_refine, "refine_merge": n_refine,
+               "readout_f32": 1, "readout_merge": 1}
     return {name: per.get(name, 0) for name in _LAUNCHES}
 
 
@@ -353,8 +355,7 @@ def _sm_count(device: torch.device) -> int:
 
 def range_blocks(kernel: str, k: int, n: int) -> int:
     """Blocks of one M range of the split-M `kernel` ("candidates",
-    "refine" or "readout"; refine on bf16 banks) for K objects and N query
-    rows."""
+    "refine", "refine_f32" or "readout") for K objects and N query rows."""
     return k * -(-n // BLOCK_ROWS[kernel])
 
 
@@ -384,8 +385,9 @@ def hilo_planes_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class BankPlanes(NamedTuple):
     """The bf16 planes of an fp32 bank's keys and values (each (K, M, C)
-    contiguous, hilo_planes_plain's split): what the fp32-bank phase A and
-    B kernels read, made once a read by `bank_planes_cuda`."""
+    contiguous, hilo_planes_plain's split): what the fp32-bank kernels
+    read (refine and phase A the keys'), made once a read by
+    `bank_planes_cuda`."""
     k_hi: torch.Tensor
     k_lo: torch.Tensor
     v_hi: torch.Tensor
@@ -439,27 +441,29 @@ def candidates_cuda(rq: ReadQuery, mem_k: torch.Tensor,
 
 def refine_cuda(rq: ReadQuery, mem_k: torch.Tensor,
                 mask: Optional[torch.Tensor], stats: torch.Tensor,
-                top_k: int) -> torch.Tensor:
-    """One refine pass: (K, 3, N) stats -> new (K, 3, N) stats. bf16
-    banks launch the split-M counting kernel and its merge; fp32 banks
-    one kernel."""
+                top_k: int, planes: Optional[BankPlanes] = None) -> torch.Tensor:
+    """One refine pass: (K, 3, N) stats -> new (K, 3, N) stats. Launches
+    the split-M counting kernel of the bank's dtype (on fp32 banks it
+    reads the keys' `planes`) and the merge."""
     k, n, m = _common(rq, mem_k, mask, top_k)
     dev = mem_k.device
     _check_dense("stats", stats, (k, 3, n), dev)
+    bf16 = mem_k.dtype == torch.bfloat16
+    p = None if bf16 else _check_planes(planes, mem_k, with_values=False)
     out = torch.empty_like(stats)
+    splits = kernel_splits("refine" if bf16 else "refine_f32", k, n, m, _sm_count(dev))
+    ws = torch.empty((splits, k, n, N_EDGES), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        if mem_k.dtype != torch.bfloat16:
-            _launch("refine_f32", _lib().mr_refine_f32(
+        if bf16:
+            _launch("refine_bf16", _lib().mr_refine_bf16(
                 rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
-                mem_k.stride(0), _ptr(mask), stats.data_ptr(), out.data_ptr(), k,
-                n, m, top_k, _stream(dev)))
-            return out
-        splits = kernel_splits("refine", k, n, m, _sm_count(dev))
-        ws = torch.empty((splits, k, n, N_EDGES), dtype=torch.int32, device=dev)
-        _launch("refine_bf16", _lib().mr_refine_bf16(
-            rq.hi.data_ptr(), rq.lo.data_ptr(), mem_k.data_ptr(),
-            mem_k.stride(0), _ptr(mask), stats.data_ptr(), ws.data_ptr(), k, n,
-            m, splits, _stream(dev)))
+                mem_k.stride(0), _ptr(mask), stats.data_ptr(), ws.data_ptr(), k,
+                n, m, splits, _stream(dev)))
+        else:
+            _launch("refine_f32", _lib().mr_refine_hilo(
+                rq.hi.data_ptr(), rq.lo.data_ptr(), p.k_hi.data_ptr(),
+                p.k_lo.data_ptr(), _ptr(mask), stats.data_ptr(), ws.data_ptr(), k,
+                n, m, splits, _stream(dev)))
         _launch("refine_merge", _lib().mr_refine_merge(
             ws.data_ptr(), stats.data_ptr(), out.data_ptr(), k, n, splits,
             top_k, _stream(dev)))
@@ -509,7 +513,7 @@ def memory_read_threshold_cuda(mem_k: torch.Tensor, mem_v: torch.Tensor,
                                n_refine: int = 0) -> torch.Tensor:
     """Launch the phase kernels on the current stream (no
     synchronisation), on fp32 banks after the bank's bf16 planes, which
-    phases A and B share. Raises on CPU tensors, unsupported dtypes,
+    all phases share. Raises on CPU tensors, unsupported dtypes,
     shapes or layouts, a missing nvcc, or a failed launch."""
     if not (mem_k.is_cuda and query_k.is_cuda):
         raise ValueError("memory_read_threshold_cuda takes CUDA tensors")
@@ -522,5 +526,5 @@ def memory_read_threshold_cuda(mem_k: torch.Tensor, mem_v: torch.Tensor,
     planes = None if mem_k.dtype == torch.bfloat16 else bank_planes_cuda(mem_k, mem_v)
     stats = candidates_cuda(rq, mem_k, mask, top_k, planes)
     for _ in range(n_refine):
-        stats = refine_cuda(rq, mem_k, mask, stats, top_k)
+        stats = refine_cuda(rq, mem_k, mask, stats, top_k, planes)
     return readout_cuda(rq, mem_k, mem_v, mask, stats, planes)

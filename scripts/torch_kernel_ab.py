@@ -16,12 +16,13 @@ sources gave equal statistics, refined statistics and readouts, on how
 many (object, row) pairs the refined threshold differs, and the largest
 readout difference over the readout scale. On fp32 banks each side also
 writes the bf16 planes of keys and values once (mr_hilo_planes, timed
-as "planes_ms", as the package makes them once a read), and its phases
-A and B read them. Refine takes the package's number of M ranges, or
+as "planes_ms", as the package makes them once a read), and its three
+phases read them. Refine takes the package's number of M ranges, or
 each of --refine-splits in turn on both sides. Both sources must export
-the package's C interface (build._SIGNATURES); to time an older source
-against its own parent, run that checkout's copy of this script. Needs
-a CUDA card and nvcc.
+the functions of the package's C interface (build._SIGNATURES) that the
+banks of --banks call (NEEDS); to time an older source against its own
+parent, run that checkout's copy of this script. Needs a CUDA card and
+nvcc.
 """
 from __future__ import annotations
 
@@ -40,15 +41,22 @@ from mivos_tpu_torch.ops.cuda.build import BUILD_DIR, NVCC_FLAGS, build_library
 
 K, N, TOP_K, TAIL = 3, 1620, 50, 800
 M_VALUES = (1620, 11340, 21060)
+MERGES = ("mr_candidates_merge", "mr_refine_merge", "mr_readout_merge")
+# The C functions `phases` calls on banks of each dtype.
+NEEDS = {"bf16": ("mr_candidates_bf16", "mr_refine_bf16", "mr_readout_bf16") + MERGES,
+         "fp32": ("mr_hilo_planes", "mr_candidates_hilo", "mr_refine_hilo",
+                  "mr_readout_hilo") + MERGES}
 
 
-def build(sources):
+def build(sources, banks):
     """Compile every source at once; return the loaded libraries."""
     def one(src):
         h = hashlib.sha256(Path(src).read_bytes() + " ".join(NVCC_FLAGS).encode())
         kl = build_library([Path(src)], BUILD_DIR / f"ab_{h.hexdigest()[:16]}.so")
-        if kl.missing:
-            raise SystemExit(f"{src} does not export {kl.missing}")
+        missing = sorted({name for bank in banks for name in NEEDS[bank]}
+                         & set(kl.missing))
+        if missing:
+            raise SystemExit(f"{src} does not export {missing}")
         return kl
 
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -86,11 +94,11 @@ def phases(lib, rq, mk, mv, mask, bufs, planes):
 
     def refine():
         if f32:
-            check(lib.mr_refine_f32(qh, ql, mk.data_ptr(), mk.stride(0), mp,
-                                    st.data_ptr(), st2.data_ptr(), K, N, m, TOP_K, stream))
-            return
-        check(lib.mr_refine_bf16(qh, ql, mk.data_ptr(), mk.stride(0), mp, st.data_ptr(),
-                                 wsr.data_ptr(), K, N, m, srf, stream))
+            check(lib.mr_refine_hilo(qh, ql, kh, kl, mp, st.data_ptr(), wsr.data_ptr(), K,
+                                     N, m, srf, stream))
+        else:
+            check(lib.mr_refine_bf16(qh, ql, mk.data_ptr(), mk.stride(0), mp,
+                                     st.data_ptr(), wsr.data_ptr(), K, N, m, srf, stream))
         check(lib.mr_refine_merge(wsr.data_ptr(), st.data_ptr(), st2.data_ptr(), K, N,
                                   srf, TOP_K, stream))
 
@@ -120,10 +128,11 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    libs = build([args.old, args.new])
+    banks = args.banks.split(",")
+    libs = build([args.old, args.new], banks)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for bank in args.banks.split(","):
+    for bank in banks:
         ab_bank(libs, dev, sms, {"bf16": torch.bfloat16, "fp32": torch.float32}[bank],
                 args.refine_splits)
 
@@ -141,8 +150,8 @@ def ab_bank(libs, dev, sms, dtype, refine_splits_arg):
         mk, mv = mk_all[:, :m].contiguous(), mv_all[:, :m].contiguous()
         planes = tuple(torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
                        for x in (mk, mk, mv, mv))
-        sc, srf, sr = (cmr.kernel_splits(name, K, N, m, sms)
-                       for name in ("candidates", "refine", "readout"))
+        sc, srf, sr = (cmr.kernel_splits(name, K, N, m, sms) for name in (
+            "candidates", "refine" if dtype == torch.bfloat16 else "refine_f32", "readout"))
         refine_splits = ([min(int(s), -(-m // cmr.SPLIT_ALIGN))
                           for s in refine_splits_arg.split(",")]
                          if refine_splits_arg else [srf])

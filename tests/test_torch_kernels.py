@@ -8,12 +8,11 @@ and skips on machines without a card. Run on the card with
 Both sides run the same algorithm on the same inputs; the kernels'
 affinities are bf16 passes of the split query (two on bf16 banks, three
 of the split query and keys on fp32 banks) summed in fp32 on the tensor
-cores (by fp32 FMAs in the fp32-bank refine), while the plain version
-sums cuBLAS fp32 matmuls of the same bf16 operands, so their affinities
-differ by ~1e-6 relative and a few near-tie boundary entries may fall on
-different sides of the threshold. Hence the gate on the MEAN error (1e-4 of the
-readout scale) plus the exact-read gate of the JAX kernel check (max
-0.3, mean 1e-3).
+cores, while the plain version sums cuBLAS fp32 matmuls of the same bf16
+operands, so their affinities differ by ~1e-6 relative and a few
+near-tie boundary entries may fall on different sides of the threshold.
+Hence the gate on the MEAN error (1e-4 of the readout scale) plus the
+exact-read gate of the JAX kernel check (max 0.3, mean 1e-3).
 """
 import numpy as np
 import pytest
@@ -145,9 +144,8 @@ def test_split_kernels_match_plain_and_repeat_bitwise(case, dtype):
     """The phase A, refine and phase B kernels alone against their plain
     phases on the same query split, over the M ranges the wrapper picks;
     two calls give equal bits (the merges sum in a fixed order); each call
-    launches each kernel and its merge once (fp32 banks: refine has no
-    merge, and the bank's bf16 planes are made once, for phases A and
-    B)."""
+    launches each kernel and its merge once (on fp32 banks after the
+    bank's bf16 planes, made once for all three phases)."""
     k, m, n, live = case
     rng = np.random.RandomState(m)
     mk, mv, q = _to_cuda(*_peaky(rng, k, m, n), dtype)
@@ -158,7 +156,7 @@ def test_split_kernels_match_plain_and_repeat_bitwise(case, dtype):
     before = cmr.launch_counts()
     planes = None if dtype == torch.bfloat16 else cmr.bank_planes_cuda(mk, mv)
     st = cmr.candidates_cuda(rq, mk, mask, 50, planes)
-    refined = cmr.refine_cuda(rq, mk, mask, st, 50)
+    refined = cmr.refine_cuda(rq, mk, mask, st, 50, planes)
     out = cmr.readout_cuda(rq, mk, mv, mask, st, planes)
     torch.cuda.synchronize()
     after = cmr.launch_counts()
@@ -177,7 +175,7 @@ def test_split_kernels_match_plain_and_repeat_bitwise(case, dtype):
     assert (out - ref).abs().mean().item() <= 1e-4 * scale
     assert (out - ref).abs().max().item() < 0.3 * scale
     assert torch.equal(cmr.candidates_cuda(rq, mk, mask, 50, planes), st)
-    assert torch.equal(cmr.refine_cuda(rq, mk, mask, st, 50), refined)
+    assert torch.equal(cmr.refine_cuda(rq, mk, mask, st, 50, planes), refined)
     assert torch.equal(cmr.readout_cuda(rq, mk, mv, mask, st, planes), out)
 
 
@@ -245,3 +243,14 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError):
         cmr.memory_read_threshold_cuda(mk.transpose(0, 1).contiguous()
                                        .transpose(0, 1)[:, :, :128], mv, q)
+    # fp32 banks: each phase needs the bank's bf16 planes, and launches
+    # nothing without them.
+    rq, stats = cmr.read_query(q), torch.zeros(2, 3, 30, device="cuda")
+    before = cmr.launch_counts()
+    with pytest.raises(ValueError):
+        cmr.candidates_cuda(rq, mk, None, 50)
+    with pytest.raises(ValueError):
+        cmr.refine_cuda(rq, mk, None, stats, 50)
+    with pytest.raises(ValueError):
+        cmr.readout_cuda(rq, mk, mv, None, stats)
+    assert cmr.launch_counts() == before

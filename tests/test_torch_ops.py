@@ -261,11 +261,12 @@ def _split_cuts(m, splits, align):
             for s in range(splits)]
 
 
-def _pallas_split_affinity(q, mk, valid=None):
-    """(K, N, M) affinity of the JAX kernel's bf16-bank split (`_affinity`)
-    on the port's scaled query, plus the additive mask of `valid`."""
+def _pallas_split_affinity(q, mk, valid=None, bank=jnp.bfloat16):
+    """(K, N, M) affinity of the JAX kernel's split (`_affinity`) for a
+    bank of dtype `bank` (default bf16) on the port's scaled query, plus
+    the additive mask of `valid`."""
     qs = jnp.asarray(cmr.scaled_query(_t(q)).numpy())
-    kb = jnp.asarray(mk).astype(jnp.bfloat16)
+    kb = jnp.asarray(mk).astype(bank)
     aff = np.stack([np.asarray(j_split_affinity(qs, kb[i]))
                     for i in range(mk.shape[0])])
     if valid is not None:
@@ -380,12 +381,26 @@ def test_split_m_top2_bins_merge_exactly(m):
 ])
 def test_refine_counts_over_split_ranges_sum_to_refine_plain(m, live, top_k, splits):
     """Refine over the 256-aligned M ranges of csrc's split_range, as the
-    bf16 kernel and its merge split it: the ranges' counts summed, then
-    the update, equal refine_plain bit for bit, for two passes on the JAX
-    kernel's affinity."""
+    refine kernels and their merge split it: the ranges' counts summed,
+    then the update, equal refine_plain bit for bit, for two passes on the
+    JAX kernel's affinity of a bf16 bank."""
+    _check_refine_over_split_ranges(m, live, top_k, splits, jnp.bfloat16)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("m,live,top_k", [(2500, 1700, 50), (2049, None, 50),
+                                          (1500, 1000, 1200)])
+def test_fp32_refine_counts_over_split_ranges_sum_to_refine_plain(m, live, top_k,
+                                                                  splits):
+    """The test above on an fp32 bank: the JAX kernel's three-pass split
+    affinity, which refine_hilo_kernel counts over the same ranges."""
+    _check_refine_over_split_ranges(m, live, top_k, splits, jnp.float32)
+
+
+def _check_refine_over_split_ranges(m, live, top_k, splits, bank):
     mk, _, q = _peaky(11, k=2, m=m, n=70)
     valid = None if live is None else np.arange(m) < live
-    aff = _t(_pallas_split_affinity(q, mk, valid))
+    aff = _t(_pallas_split_affinity(q, mk, valid, bank))
     stats = cmr.candidates_plain(aff, top_k)
     cuts = _split_cuts(m, splits, 256)
     assert all(j0 < j1 for j0, j1 in cuts) and cuts[-1][1] == m
@@ -431,10 +446,13 @@ def test_threshold_plain_matches_pallas_on_bin_collisions(bf16):
 def test_split_count_fills_the_waves():
     # The session's timing shape (K = 3, N = 1620) on 132 SMs: 78 readout
     # blocks of 64 rows and 153 candidates blocks of 32 rows -> 3 ranges;
-    # 78 refine blocks of 64 rows, three an SM -> 5 ranges.
+    # 78 refine blocks of 64 rows, three an SM -> 5 ranges, on bf16 and
+    # fp32 banks alike.
     assert cmr.range_blocks("readout", 3, 1620) == 78
     assert cmr.range_blocks("candidates", 3, 1620) == 153
     assert cmr.range_blocks("refine", 3, 1620) == 78
+    assert cmr.range_blocks("refine_f32", 3, 1620) == 78
+    assert cmr.kernel_splits("refine_f32", 3, 1620, 21060, 132) == 5
     assert cmr.split_count(78, 21060, 132, 8) == 3
     assert cmr.split_count(153, 21060, 132, 4) == 3
     assert cmr.split_count(78, 21060, 3 * 132, 8) == 5
@@ -488,7 +506,30 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         cmr.hilo_planes_cuda(_t(mk))
     with pytest.raises(ValueError):
         cmr.bank_planes_cuda(_t(mk), _t(mv))
+    stats = torch.zeros(1, 3, 20)
+    planes = cmr.BankPlanes(*cmr.hilo_planes_plain(_t(mk)),
+                            *cmr.hilo_planes_plain(_t(mv)))
+    for bank in (_t(mk), _t(mk).to(torch.bfloat16)):
+        with pytest.raises(ValueError):
+            cmr.refine_cuda(cmr.read_query(_t(q)), bank, None, stats, 30, planes)
     assert cmr.launch_counts() == before
+
+
+@pytest.mark.parametrize("n_refine", [0, 1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_launches_per_read_count_each_kernel_and_merge(dtype, n_refine):
+    """One read launches phases A and B with their merges once and each
+    refine pass's kernel with its merge, on either bank dtype; fp32 banks
+    add the planes of keys and values."""
+    per = cmr.launches_per_read(dtype, n_refine)
+    assert set(per) == set(cmr.launch_counts())
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    want = {f"candidates_{suffix}": 1, "candidates_merge": 1,
+            f"refine_{suffix}": n_refine, "refine_merge": n_refine,
+            f"readout_{suffix}": 1, "readout_merge": 1,
+            "hilo_planes": 2 if dtype == torch.float32 else 0}
+    assert per == {name: want.get(name, 0) for name in per}
 
 
 def test_memory_config_rejects_unported_km():
