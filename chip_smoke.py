@@ -61,6 +61,21 @@ Phases (any failure exits non-zero before the final line):
              (K, N, M) those reads had, on banks laid out as the bank's
              live prefix; then a small fp32 lockstep: the same robot
              scribbles through an `auto` and an `exact` processor.
+  7. fbrs    the f-BRS click path: random-init FBRSDeepLabModel
+             ("resnet50", ch=128, the reference GUI's resnet50_dh128),
+             fp32, through FBRSController (f-BRS-B, ZoomIn 480, L-BFGS
+             maxiter 20) on a synthetic 480x854 frame: 5 clicks of the
+             simulated user (NoC clicker) with cuDNN autotune off, a
+             first use (new cuDNN shapes) and a repeat drive;
+             per click host wall ms, head-input recompute, crop, L-BFGS
+             iterations, evaluations and host flag reads, peak memory;
+             every map finite, in [0, 1], 480x854; one undo (restores
+             the previous map exactly) and one finish_object; no memory
+             read kernel launched. Then card against CPU at 240x320,
+             ZoomIn 240, 3 clicks: first click max |dp| <= 1e-3, then
+             the same clicks and mask (p > 0.49) IoU >= 0.99. Then where
+             a click's time goes: GFLOP from shapes, CUDA-event ms of the
+             head input and of one L-BFGS evaluation, profiler traces.
 The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds and
@@ -76,6 +91,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from mivos_tpu_torch.config import MemoryConfig
 from mivos_tpu_torch.core.davis_processor import DAVISProcessor
@@ -83,8 +99,13 @@ from mivos_tpu_torch.core.inference import InferenceCore
 from mivos_tpu_torch.eval.davis_interactive import run_local_interactive
 from mivos_tpu_torch.eval.davis_metrics import SequenceJF
 from mivos_tpu_torch.eval.robot import InteractiveScribblesRobot
+from mivos_tpu_torch.interactive.clicker import Clicker
+from mivos_tpu_torch.interactive.fbrs_controller import (FBRSController,
+                                                         InteractiveController)
+from mivos_tpu_torch.interactive.fbrs_predictor import fbrs_objective
 from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.interactive.scribbles import is_empty, scribbles2mask
+from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
 from mivos_tpu_torch.models.fusion import FusionNet
 from mivos_tpu_torch.models.initializer import init_params
 from mivos_tpu_torch.models.propagation import PropagationNetwork
@@ -101,6 +122,8 @@ GATE_FRAMES, TAIL = 26, 800
 MEASURED = 3
 DAVIS_T, DAVIS_ROUNDS, DAVIS_SEQS = 50, 8, ((101, 2), (102, 3))  # (seed, K)
 PROPAGATE_ON = (2, 5, 7)     # reference davis_processor.py:34
+FBRS_CLICKS, FBRS_CHECK = 5, (240, 320, 3)   # check: h, w, clicks
+FBRS_LOGIT_GAIN = 10.0       # as tests/test_torch_fbrs.py
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
 # The Pallas code each phase's kernels replace: the three pallas_calls'
 # kernels, and the split of fp32 key tiles in `_affinity` that the
@@ -835,6 +858,222 @@ def phase_davis_check(dev):
           f"auto vs exact DAVIS lockstep {rep}")
 
 
+def fbrs_net():
+    """Random-init FBRSDeepLabModel("resnet50", ch=128), on the host. The
+    last conv is scaled by FBRS_LOGIT_GAIN, as the CPU tests do, so the
+    random logits spread over O(1) around the mask threshold."""
+    net = init_params(FBRSDeepLabModel("resnet50", ch=128, norm_radius=260.0),
+                      torch.Generator().manual_seed(11))
+    with torch.no_grad():
+        net.head.layers[2].weight.mul_(FBRS_LOGIT_GAIN)
+    return net
+
+
+def fbrs_drive(ctl, image, gt, n, dev):
+    """n clicks of the NoC user (Clicker over gt, the mask p > 0.49)
+    through ctl, an FBRSController or InteractiveController on an
+    anchored image. Returns the clicks, each click's record and map."""
+    clicker = Clicker(gt)
+    pred = np.zeros(gt.shape, bool)
+    inner = getattr(ctl, "controller", ctl)
+    recs, probs = [], []
+    for _ in range(n):
+        clicker.make_next_click(pred)
+        c = clicker.clicks_list[-1]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if isinstance(ctl, FBRSController):
+            ctl.interact(image, c.coords[1], c.coords[0], c.is_positive)
+        else:
+            ctl.add_click(c.coords[1], c.coords[0], c.is_positive)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        prob = inner.probs_history[-1][1]
+        info = inner.predictor.last_info
+        recs.append({"click": [c.coords[0], c.coords[1], c.is_positive],
+                     "ms": ms, "recomputed": info["recomputed"],
+                     "crop_hw": list(info["crop_hw"]), "iters": info["iters"],
+                     "evals": info["evals"], "host_reads": info["host_reads"],
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                  if dev.type == "cuda" else None)})
+        probs.append(prob)
+        pred = prob > 0.49
+    return [(c.is_positive, c.coords) for c in clicker.clicks_list], recs, probs
+
+
+def device_profile(fn):
+    """torch.profiler over one call of fn (after one unprofiled call and
+    a profiler warm-up): its wall ms, the kernels it launched, their
+    summed device ms, the device's idle share of the wall time, and the
+    kernels that took most device time."""
+    fn()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [a for a in prof.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in rows) / 1e3
+    top = sorted(rows, key=lambda a: -a.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms, "kernels": sum(a.count for a in rows),
+            "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
+            "top_device_ms": {a.key[:70]: a.self_device_time_total / 1e3
+                              for a in top}}
+
+
+def fbrs_gflop(crop_hw):
+    """GFLOP of a click's work from shapes (torch.utils.flop_counter on
+    meta tensors, batch 2 with the flip): the head input at the frame and
+    at the crop, and one L-BFGS evaluation at the crop (gradients toward
+    x only, as the predictor runs it)."""
+    with torch.device("meta"):
+        net = FBRSDeepLabModel("resnet50", ch=128).requires_grad_(False)
+    rep = {}
+    for name, (h, w) in (("frame", (RH, RW)), ("crop", tuple(crop_hw))):
+        with FlopCounterMode(display=False) as fc:
+            feats = net.head_input(torch.zeros(2, 3, h, w, device="meta"),
+                                   torch.zeros(2, 2, 2, device="meta"))
+        rep[f"head_input_gflop_{name}"] = fc.get_total_flops() / 1e9
+    clicks = torch.zeros(1, 1, h, w, device="meta")
+    _, loss_fn = fbrs_objective(net, feats, clicks, clicks, (h, w))
+    x = torch.zeros(2 * feats.shape[1], device="meta", requires_grad=True)
+    with FlopCounterMode(display=False) as fc:
+        torch.autograd.grad(loss_fn(x)[0], x)
+    rep["evaluation_gflop_crop"] = fc.get_total_flops() / 1e9
+    return rep
+
+
+def fbrs_breakdown(net, dev, image, clicks, crop_hw):
+    """Where a click's time goes: GFLOP from shapes (fbrs_gflop), CUDA-event
+    ms of the head input at the frame and at the ZoomIn crop, and of one
+    L-BFGS evaluation (the head
+    replay's forward and backward, the loss) at the crop; then
+    torch.profiler traces of that evaluation and of the third click of a
+    repeat drive (device_profile)."""
+    h, w = crop_hw
+    rep = fbrs_gflop(crop_hw)
+    with torch.no_grad():
+        for name, hw in (("head_input_ms_frame", (RH, RW)), ("head_input_ms_crop", (h, w))):
+            img = torch.randn(2, 3, *hw, device=dev)
+            pts = torch.tensor([[[hw[0] / 2, hw[1] / 2], [-1.0, -1.0]]] * 2, device=dev)
+            rep[name] = cuda_ms(lambda: net.head_input(img, pts), iters=10)
+        feats = net.head_input(torch.randn(2, 3, h, w, device=dev),
+                               torch.full((2, 2, 2), -1.0, device=dev))
+    pos = torch.zeros(1, 1, h, w, device=dev)
+    neg = torch.zeros(1, 1, h, w, device=dev)
+    pos[..., h // 2 - 1:h // 2 + 2, w // 2 - 1:w // 2 + 2] = 1
+    neg[..., 10:13, 10:13] = 1
+    _, loss_fn = fbrs_objective(net, feats, pos, neg, (h, w))
+    x = torch.zeros(2 * feats.shape[1], device=dev, requires_grad=True)
+
+    def evaluation():
+        torch.autograd.grad(loss_fn(x)[0], x)
+
+    rep["evaluation_ms_crop"] = cuda_ms(evaluation, iters=20)
+    rep["evaluation"] = device_profile(evaluation)
+    ctl = FBRSController(net, device=dev)
+    for pos_, (y, x_) in clicks[:2]:
+        ctl.interact(image, x_, y, pos_)
+    (pos_, (y, x_)) = clicks[2]
+
+    def click3():   # undone after, so both calls make the same third click
+        ctl.interact(image, x_, y, pos_)
+        ctl.undo()
+
+    rep["click3"] = device_profile(click3)
+    info = ctl.controller.predictor.last_info
+    rep["click3"].update(iters=info["iters"], evals=info["evals"],
+                         host_reads=info["host_reads"])
+    return rep
+
+
+def phase_fbrs(dev):
+    """The f-BRS click path at full width (see the module docstring,
+    phase 7). Runs with TF32 off, as main() sets."""
+    net = fbrs_net()
+    cpu_net = copy.deepcopy(net)
+    frames, labels = synthetic_video(31, 1, RH, RW, 1)
+    image, gt = frames[0], labels[0].astype(np.int32)
+    rep = {"phase": "fbrs", "hw": [RH, RW], "model": "resnet50 ch128 fp32",
+           "brs_mode": "f-BRS-B", "drives": {}}
+    runs = {}
+    for name in ("first_use", "repeat"):
+        cmr.reset_launch_counts()   # the f-BRS path's launches start here
+        ctl = FBRSController(net, device=dev)
+        clicks, recs, probs = fbrs_drive(ctl, image, gt, FBRS_CLICKS, dev)
+        counts = cmr.launch_counts()
+        check(sum(counts.values()) == 0, f"f-BRS launched memory-read kernels {counts}")
+        for i, p in enumerate(probs):
+            check(p.shape == (RH, RW) and bool(np.isfinite(p).all())
+                  and p.min() >= 0.0 and p.max() <= 1.0,
+                  f"f-BRS {name} click {i}: map {p.shape} outside [0, 1] or not finite")
+        check(recs[0]["iters"] == 0 and all(r["iters"] > 0 for r in recs[1:]),
+              f"f-BRS {name}: the clicks after the first must optimize {recs}")
+        for r in recs:
+            log(json.dumps({"fbrs_click": name, **r}))
+        rep["drives"][name] = {"ms": [r["ms"] for r in recs]}
+        runs[name] = (ctl, clicks, probs, recs)
+    ctl, clicks, probs, recs = runs["repeat"]
+    check(all(runs[n][1] == clicks for n in runs), "f-BRS drives chose other clicks")
+    mask = ctl.undo()
+    check(np.array_equal(ctl.controller.probs_history[-1][1], probs[-2])
+          and np.array_equal(mask, (probs[-2] > 0.5).astype(np.float32)),
+          "undo did not restore the previous map")
+    (y, x), pos = clicks[-1][1], clicks[-1][0]
+    ctl.interact(image, x, y, pos)   # the undone click again, reported
+    rep["redo_max_abs_dp"] = float(np.abs(ctl.controller.probs_history[-1][1]
+                                          - probs[-1]).max())
+    ctl.undo()
+    ctl.controller.finish_object()
+    result = ctl.controller.result_mask
+    check(ctl.controller.object_count == 1
+          and np.array_equal(result, (probs[-2] > 0.5).astype(np.uint8)),
+          "finish_object did not commit the last map")
+    gt_iou = [float((p > 0.49)[gt == 1].sum() / max(((p > 0.49) | (gt == 1)).sum(), 1))
+              for p in probs]
+    rep.update(clicks=clicks, iou_vs_gt_random_init=gt_iou,
+               fg_fraction=[float((p > 0.49).mean()) for p in probs])
+
+    # Card against CPU: the same weights and the user's clicks, at 240x320.
+    full_image = image
+    h, w, n = FBRS_CHECK
+    frames, labels = synthetic_video(32, 1, h, w, 1)
+    image, gt = frames[0], labels[0].astype(np.int32)
+    out = []
+    for d, m in ((dev, net), (torch.device("cpu"), cpu_net)):
+        ctl = InteractiveController(m, prob_thresh=0.5, zoom_target=240, device=d)
+        ctl.set_image(image)
+        out.append(fbrs_drive(ctl, image, gt, n, d))
+    (gc, grec, gp), (cc, crec, cp) = out
+    gaps = [float(np.abs(a - b).max()) for a, b in zip(gp, cp)]
+    ious = [float(((a > 0.49) & (b > 0.49)).sum() / max(((a > 0.49) | (b > 0.49)).sum(), 1))
+            for a, b in zip(gp, cp)]
+    rep["card_vs_cpu"] = {"hw": [h, w], "clicks": gc, "max_abs_dp": gaps,
+                          "mask_iou": ious, "cpu_clicks": cc,
+                          "iters_card": [r["iters"] for r in grec],
+                          "iters_cpu": [r["iters"] for r in crec]}
+    log(json.dumps(rep))
+    check(gaps[0] <= 1e-3, f"f-BRS first click card vs CPU {gaps[0]} > 1e-3")
+    check(gc == cc, f"f-BRS card and CPU chose other clicks: {gc} vs {cc}")
+    check(min(ious[1:]) >= 0.99, f"f-BRS card vs CPU mask IoU {ious}")
+    crop = next(r["crop_hw"] for r in recs if r["iters"])
+    log(json.dumps({"fbrs_breakdown": fbrs_breakdown(net, dev, full_image, clicks, crop)}))
+    repeat = rep["drives"]["repeat"]["ms"]
+    log(json.dumps({"metric": "fbrs_click_ms_480p", "first_click_ms": repeat[0],
+                    "repeat_ms": repeat, "optimized_median_ms": float(np.median(repeat[1:])),
+                    "first_use_ms": rep["drives"]["first_use"]["ms"]}))
+
+
 def main():
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -863,6 +1102,10 @@ def main():
     torch.cuda.empty_cache()
     phase_davis_check(dev)
     log(f"davis phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_fbrs(dev)
+    log(f"fbrs phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
         paths = ({"session": launches_bf16, "davis": davis_launches} if dtype == BF16

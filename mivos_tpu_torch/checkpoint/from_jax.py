@@ -10,9 +10,12 @@ flax): conv kernels HWIO -> OIHW (`_conv_kernel`, :39), FrozenBatchNorm
 `conv1`, `conv2_0/1`, `conv3_0/1` -> the reference Sequential indices
 (:139-145), and S2MNetwork's DeepLab head (`project`, `aspp.b0-b3`,
 `aspp.pool_conv`, `aspp.project`, `classifier0/1`) -> the reference
-Sequential indices (`convert_s2m`, :156-172). The port's module names
-are the reference's, so the result loads with strict=True and feeds
-straight back into convert.py. Operates on numpy arrays; no jax import.
+Sequential indices (`convert_s2m`, :156-172). FBRSDeepLabModel has a
+table of its own (`fbrs_state_dict_from_flax`, the inverse of
+`convert_fbrs`, :177-225), so no FusionNet rule touches its names. The
+port's module names are the reference's, so the result loads with
+strict=True and feeds straight back into convert.py. Operates on numpy
+arrays; no jax import.
 """
 from __future__ import annotations
 
@@ -26,10 +29,12 @@ _BN_INV = {"scale": "weight", "bias": "bias", "mean": "running_mean",
            "var": "running_var"}
 
 # (regex, replacement) on dotted flax paths, applied in order.
-_RULES = (
+_RESNET_RULES = (
     (r"\.layer(\d)\.block(\d+)\.", r".layer\1.\2."),
     (r"\.downsample_conv\.", ".downsample.0."),
     (r"\.downsample_bn\.", ".downsample.1."),
+)
+_RULES = _RESNET_RULES + (
     (r"^rgb_encoder\.layer1\.", "rgb_encoder.res2."),
     (r"^conv1\.(weight|bias)$", r"conv1.0.\1"),
     (r"^conv2_0\.", "conv2.0."),
@@ -48,6 +53,34 @@ _RULES = (
     (r"^classifier\.classifier0\.bn\.", "classifier.classifier.1."),
     (r"^classifier\.classifier1\.", "classifier.classifier.3."),
 )
+_FE = "feature_extractor"
+_FBRS_RULES = _RESNET_RULES + (
+    (r"^rgb_conv_0\.", "rgb_conv.0."),
+    (r"^rgb_conv_bn\.", "rgb_conv.2."),
+    (r"^rgb_conv_1\.", "rgb_conv.3."),
+    (r"^backbone\.stem0\.", f"{_FE}.backbone.conv1.0."),
+    (r"^backbone\.stem_bn0\.", f"{_FE}.backbone.conv1.1."),
+    (r"^backbone\.stem1\.", f"{_FE}.backbone.conv1.3."),
+    (r"^backbone\.stem_bn1\.", f"{_FE}.backbone.conv1.4."),
+    (r"^backbone\.stem2\.", f"{_FE}.backbone.conv1.6."),
+    (r"^backbone\.", f"{_FE}.backbone."),
+    (r"^skip_project_conv\.", f"{_FE}.skip_project.skip_project.0."),
+    (r"^skip_project_bn\.", f"{_FE}.skip_project.skip_project.1."),
+    (r"^aspp\.b(\d)_conv\.", rf"{_FE}.aspp.concurent.\1.0."),
+    (r"^aspp\.b(\d)_bn\.", rf"{_FE}.aspp.concurent.\1.1."),
+    (r"^aspp\.pool_conv\.", f"{_FE}.aspp.concurent.4.gap.1."),
+    (r"^aspp\.pool_bn\.", f"{_FE}.aspp.concurent.4.gap.2."),
+    (r"^aspp\.project_conv\.", f"{_FE}.aspp.project.0."),
+    (r"^aspp\.project_bn\.", f"{_FE}.aspp.project.1."),
+    (r"^head_sep(\d)\.dw\.", rf"{_FE}.head.block.\1.body.0."),
+    (r"^head_sep(\d)\.pw\.", rf"{_FE}.head.block.\1.body.1."),
+    (r"^head_sep(\d)\.bn\.", rf"{_FE}.head.block.\1.body.2."),
+    (r"^head_out\.", f"{_FE}.head.block.2."),
+    (r"^sep_head(\d)\.dw\.", r"head.layers.\1.body.0."),
+    (r"^sep_head(\d)\.pw\.", r"head.layers.\1.body.1."),
+    (r"^sep_head(\d)\.bn\.", r"head.layers.\1.body.2."),
+    (r"^sep_head_out\.", "head.layers.2."),
+)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -61,10 +94,11 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+def state_dict_from_flax(params: Mapping,
+                         rules=_RULES) -> Dict[str, torch.Tensor]:
     """Flax tree ({'params': ...} or the bare tree) of PropagationNetwork,
     FusionNet or S2MNetwork -> the port's state_dict (fp32 torch
-    tensors)."""
+    tensors). `rules` renames the dotted flax paths."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
@@ -77,7 +111,12 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             parts[-1] = "weight"
             val = val.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         name = ".".join(parts)
-        for pat, rep in _RULES:
+        for pat, rep in rules:
             name = re.sub(pat, rep, name)
         sd[name] = torch.from_numpy(np.array(val, np.float32, order="C"))
     return sd
+
+
+def fbrs_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax tree of FBRSDeepLabModel -> the port's state_dict."""
+    return state_dict_from_flax(params, _FBRS_RULES)

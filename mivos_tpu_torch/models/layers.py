@@ -58,6 +58,15 @@ def conv1x1(in_ch: int, out_ch: int, stride: int = 1,
     return Conv2d(in_ch, out_ch, 1, stride=stride, bias=bias)
 
 
+def conv_bn_relu(in_ch: int, out_ch: int, kernel: int = 1,
+                 dilation: int = 1) -> nn.Sequential:
+    """Bias-free 1x1 or dilated 3x3 conv, FrozenBatchNorm, ReLU (the
+    DeepLab heads' unit; Sequential indices 0, 1, 2)."""
+    conv = (conv1x1(in_ch, out_ch, bias=False) if kernel == 1
+            else conv3x3(in_ch, out_ch, dilation=dilation, bias=False))
+    return nn.Sequential(conv, FrozenBatchNorm(out_ch), nn.ReLU())
+
+
 class ResBlock(nn.Module):
     """Pre-activation residual block of the propagation decoder
     (reference model/propagation/modules.py:15-35)."""

@@ -21,16 +21,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from mivos_tpu_torch.models.layers import (Conv2d, FrozenBatchNorm, conv1x1,
-                                           conv3x3)
+                                           conv3x3, conv_bn_relu)
 from mivos_tpu_torch.models.resnet import ResNet50
 from mivos_tpu_torch.ops.resize import bilinear_resize
-
-
-def conv_bn_relu(in_ch: int, out_ch: int, kernel: int = 1,
-                 dilation: int = 1) -> nn.Sequential:
-    conv = (conv1x1(in_ch, out_ch, bias=False) if kernel == 1
-            else conv3x3(in_ch, out_ch, dilation=dilation, bias=False))
-    return nn.Sequential(conv, FrozenBatchNorm(out_ch), nn.ReLU())
 
 
 class ASPPPooling(nn.Sequential):

@@ -29,6 +29,8 @@ from mivos_tpu_torch.core.inference import InferenceCore
 from mivos_tpu_torch.core.memory_bank import MemoryBank
 from mivos_tpu_torch.eval import davis_interactive, davis_metrics
 from mivos_tpu_torch.eval.robot import LocalInteractiveSession
+from mivos_tpu_torch import click_to_mask
+from mivos_tpu_torch.interactive import fbrs_controller, fbrs_predictor
 from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.ops import aggregate, memory_read as mr, resize
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
@@ -55,13 +57,13 @@ def test_port_imports_no_jax_and_no_mivos_tpu():
         "'mivos_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'mivos_tpu', 'cv2', 'PIL'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'mivos_tpu', 'cv2', 'PIL'))\n"
         "print(len([m for m in sys.modules if m.startswith('mivos_tpu_torch')]))\n"
         "assert not bad, bad\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 36  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 44  # every module was imported
 
 
 # ---------------------------------------------------------------- (b)
@@ -475,9 +477,15 @@ def test_entry_points_default_to_the_card():
         davis_interactive.run_local_interactive_davis,
         LocalInteractiveSession.__init__, davis_metrics.SequenceJF.__init__,
         davis_metrics.region_j, davis_metrics.batched_jf,
-        davis_metrics.sequence_jf, davis_metrics.db_eval_boundary]
+        davis_metrics.sequence_jf, davis_metrics.db_eval_boundary,
+        fbrs_controller.FBRSController.__init__,
+        fbrs_controller.InteractiveController.__init__,
+        fbrs_predictor.FeatureBRSPredictor.__init__,
+        fbrs_predictor.get_predictor]
     for fn in entry_points:
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    assert click_to_mask.parse_args(["--image", "x.png", "--clicks", "1,2,+"]
+                                    ).device == "cuda"
     device = inspect.signature(MemoryBank.__init__).parameters["device"]
     assert device.default is inspect.Parameter.empty
     with pytest.raises(TypeError):
