@@ -76,18 +76,54 @@ Phases (any failure exits non-zero before the final line):
              the same clicks and mask (p > 0.49) IoU >= 0.99. Then where
              a click's time goes: GFLOP from shapes, CUDA-event ms of the
              head input and of one L-BFGS evaluation, profiler traces.
+  8. serve   the HTTP session server, cuDNN autotune off with
+             deterministic plans (as davis): SessionManager over the
+             full-width bf16 nets on this card (max_sessions 2),
+             warm(60, 480, 854, 3, 2 rounds), make_server on a free
+             port. Session A (60 frames 480x854, K = 3, uint8 upload):
+             interact on frame 0 while a second client polls /progress
+             every 10 ms (a poll must see a partial round; time to the
+             first non-empty poll), then on frame 59 (fusion); /masks
+             equals the last answer. Session B, then two clients at once
+             (A's frame 30, B's frame 0). Launch counters, zeroed before
+             session A, equal the served reads times the launches per
+             read. Every answer equals the same interactions through a
+             direct InferenceCore on the manager's prepared nets;
+             /metrics counts the rounds; DELETE both; the drain returns
+             drained and empties the manager. Prints warm s, create ms,
+             interact ms per round, first chunk ms, p50/p95 and the peak
+             memory with two live sessions.
+  9. gui     GuiSession with the full-width bf16 nets, a bf16 S2M and the
+             fbrs phase's f-BRS model (fp32), on 60 uint8 frames 480x854,
+             K = 2, deterministic plans: frame 0 scribbles for both
+             objects (S2M), two free strokes and an undo, propagation
+             (total 59, 59 steps); frame 40 a positive and a negative
+             click on object 1, an undo (restores the first click's
+             labels), a click on object 2, the fusion pass; frame 20 a
+             200x150 local-control box with a free stroke, propagation.
+             Launch counters against the reads; compose_frame in three
+             modes; save_masks reads back equal; the masks the session
+             handed the processor, replayed through a direct core, give
+             equal labels. Prints S2M and click ms and each
+             propagation's seconds.
 The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
-(kernel and merge) over its paths (bf16: the session's bf16 rounds and
-the davis run; fp32: the session's fp32 rounds), "max_abs_err" is the
-worst of the gates of its bank dtype, "ms", "plain_ms" and "bound_ms"
-are at M = 21060. The last line is {"ok": true, "device": {...}}.
+(kernel and merge) over its paths (bf16: the session's bf16 rounds, the
+davis run, serve and gui; fp32: the session's fp32 rounds),
+"max_abs_err" is the worst of the gates of its bank dtype, "ms",
+"plain_ms" and "bound_ms" are at M = 21060. The last line is
+{"ok": true, "device": {...}}.
 """
 import contextlib
 import copy
+import io
 import json
+import os
 import subprocess
+import tempfile
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -103,6 +139,7 @@ from mivos_tpu_torch.interactive.clicker import Clicker
 from mivos_tpu_torch.interactive.fbrs_controller import (FBRSController,
                                                          InteractiveController)
 from mivos_tpu_torch.interactive.fbrs_predictor import fbrs_objective
+from mivos_tpu_torch.interactive.gui_session import GuiSession
 from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.interactive.scribbles import is_empty, scribbles2mask
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
@@ -113,8 +150,9 @@ from mivos_tpu_torch.models.s2m import S2MNetwork
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
 from mivos_tpu_torch.ops.cuda.build import load_library
 from mivos_tpu_torch.ops.memory_read import memory_read
-from mivos_tpu_torch.utils.tensor import (compute_pad, one_hot_mask,
-                                          pad_divide_by, unpad)
+from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_gracefully
+from mivos_tpu_torch.utils.tensor import (compute_pad, labels_to_probs,
+                                          one_hot_mask, pad_divide_by, unpad)
 
 T, RH, RW, K = 60, 480, 854, 3
 TOP_K, MEM_FREQ = 50, 5
@@ -1074,6 +1112,313 @@ def phase_fbrs(dev):
                     "first_use_ms": rep["drives"]["first_use"]["ms"]}))
 
 
+def uint8_video(seed, t, h, w, k):
+    """synthetic_video's frames as uint8 RGB (what a client uploads) and
+    its label maps as uint8."""
+    frames, labels = synthetic_video(seed, t, h, w, k)
+    rgb = np.clip(frames * STD + MEAN, 0.0, 1.0) * 255.0
+    return np.round(rgb).astype(np.uint8), labels.astype(np.uint8)
+
+
+def http(url, method="GET", arrays=None):
+    """One request to the server: (status, decoded JSON or npz body)."""
+    data = None
+    if arrays is not None:
+        buf = io.BytesIO()
+        np.savez(buf, **arrays)
+        data = buf.getvalue()
+    req = urllib.request.Request(url, data, method=method)
+    with urllib.request.urlopen(req) as r:
+        body = r.read()
+        if r.headers["Content-Type"] == "application/json":
+            return r.status, json.loads(body)
+    with np.load(io.BytesIO(body)) as z:
+        return 200, {k: z[k] for k in z.files}
+
+
+def phase_serve(dev):
+    """The HTTP session server (module docstring, phase 8). Returns the
+    launch counts of the served interactions."""
+    t_phase = time.perf_counter()
+    prop, fuse = make_nets(dev, BF16)
+    mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ)
+    mgr = SessionManager(prop, fuse, mem=mem, devices=[dev], max_sessions=2)
+    del prop, fuse
+    warm_s = mgr.warm(T, RH, RW, K, interactions=2)
+    log(f"serve: warm {warm_s:.3f} s (T={T}, {RH}x{RW}, K={K}, 2 rounds)")
+    srv = make_server(mgr, port=0)
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+    base = "http://%s:%d" % srv.server_address[:2]
+    video_a, lab_a = uint8_video(41, T, RH, RW, K)
+    video_b, lab_b = uint8_video(42, T, RH, RW, K)
+    rounds_a = [(0, lab_a[0]), (T - 1, lab_a[T - 1]), (T // 2, lab_a[T // 2])]
+    rep = {"phase": "serve", "video": [T, RH, RW, K], "warm_s": warm_s,
+           "interact_ms": []}
+
+    def interact(sid, idx, labels):
+        t0 = time.perf_counter()
+        _, body = http(f"{base}/v1/sessions/{sid}/interact", "POST",
+                       {"labels": labels, "frame": np.int64(idx)})
+        return body["masks"], (time.perf_counter() - t0) * 1e3
+
+    cmr.reset_launch_counts()   # the serve path's launches start here
+    reads = 0
+    t0 = time.perf_counter()
+    _, body = http(f"{base}/v1/sessions?num_objects={K}", "POST",
+                   {"video": video_a})
+    rep["create_ms"] = (time.perf_counter() - t0) * 1e3
+    sid_a = body["session_id"]
+    core_a = mgr._get(sid_a).core
+
+    # Round 1 while a second client polls /progress every 10 ms. The
+    # session's chunk hook is wrapped for this round to time when the
+    # server first hands a chunk over, apart from the poll's reply.
+    polls, stop, handed = [], threading.Event(), []
+
+    def hooked(mask, idx, chunk_cb):
+        def cb(tis, labs):
+            handed.append(time.perf_counter())
+            chunk_cb(tis, labs)
+        return type(core_a).interact(core_a, mask, idx, chunk_cb=cb)
+
+    core_a.interact = hooked
+
+    def poll():
+        while not stop.is_set():
+            _, p = http(f"{base}/v1/sessions/{sid_a}/progress")
+            polls.append((time.perf_counter(), int(p["round"]), int(p["done"]),
+                          len(p["frames"])))
+            time.sleep(0.01)
+
+    poller = threading.Thread(target=poll)
+    reads += expected_reads(core_a, 0)
+    t_start = time.perf_counter()
+    poller.start()
+    served = [interact(sid_a, *rounds_a[0])]
+    del core_a.interact
+    stop.set()
+    poller.join(60.0)
+    check(not poller.is_alive(), "the progress poller did not stop")
+    streaming = [n for _, rnd, done, n in polls if rnd == 1 and not done]
+    check(any(1 <= n <= T - 2 for n in streaming),
+          f"no poll saw a partial round: {[(r, d, n) for _, r, d, n in polls]}")
+    # first_chunk_ms: the first /progress reply with frames, as a client
+    # sees it (the reply's npz encode included); first_chunk_cb_ms: the
+    # server's first chunk hand-over, both from before the request.
+    rep["first_chunk_ms"] = min(
+        (t - t_start) * 1e3 for t, rnd, _, n in polls if rnd == 1 and n > 0)
+    rep["first_chunk_cb_ms"] = (handed[0] - t_start) * 1e3
+    rep["chunks"] = len(handed)
+    rep["polls"], rep["partial_polls"] = len(polls), len(streaming)
+    reads += expected_reads(core_a, T - 1)
+    served.append(interact(sid_a, *rounds_a[1]))   # the fusion pass
+    _, body = http(f"{base}/v1/sessions/{sid_a}/masks")
+    check(np.array_equal(body["masks"], served[-1][0]),
+          "GET /masks differs from the last interact's masks")
+
+    # Two sessions, two clients at once: A's frame 30 and B's frame 0.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, body = http(f"{base}/v1/sessions?num_objects={K}", "POST",
+                   {"video": video_b})
+    sid_b = body["session_id"]
+    reads += expected_reads(core_a, rounds_a[2][0])
+    reads += expected_reads(mgr._get(sid_b).core, 0)
+    both = {}
+    clients = [threading.Thread(target=lambda: both.update(
+                   a=interact(sid_a, *rounds_a[2]))),
+               threading.Thread(target=lambda: both.update(
+                   b=interact(sid_b, 0, lab_b[0])))]
+    for c in clients:
+        c.start()
+    for c in clients:
+        c.join(300.0)
+    check(not any(c.is_alive() for c in clients) and set(both) == {"a", "b"},
+          "a concurrent interact did not finish")
+    torch.cuda.synchronize()
+    rep["peak_gib_two_sessions"] = torch.cuda.max_memory_allocated() / 2**30
+    counts = cmr.launch_counts()
+    check(counts == {name: n * reads for name, n in
+                     cmr.launches_per_read(BF16, 0).items()},
+          f"serve launches {counts} for {reads} reads")
+    rep["interact_ms"] = [ms for _, ms in served] + [both["a"][1], both["b"][1]]
+    rep["reads"] = reads
+    # Where a round's time goes besides the manager's interact (its own
+    # latencies, the 2 warm rounds first): the masks' npz on the wire.
+    rep["manager_interact_s"] = list(mgr._latencies)
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    np.savez_compressed(buf, masks=served[-1][0])
+    rep["npz_encode_ms"] = (time.perf_counter() - t0) * 1e3
+    rep["npz_mb"] = len(buf.getvalue()) / 1e6
+    t0 = time.perf_counter()
+    np.load(io.BytesIO(buf.getvalue()))["masks"]
+    rep["npz_decode_ms"] = (time.perf_counter() - t0) * 1e3
+
+    # The same interactions through direct cores on the same prepared nets.
+    prop, fuse = mgr.prepared_nets(dev)
+    ref = InferenceCore(prop, fuse, video_a, K, mem=mem, device=dev)
+    for (idx, lab), (masks, _) in zip(rounds_a, served + [both["a"]]):
+        check(np.array_equal(ref.interact(labels_to_probs(lab, K), idx), masks),
+              f"served session A, frame {idx}: labels differ from a direct core")
+    ref = InferenceCore(prop, fuse, video_b, K, mem=mem, device=dev)
+    check(np.array_equal(ref.interact(labels_to_probs(lab_b[0], K), 0),
+                         both["b"][0]),
+          "served session B: labels differ from a direct core")
+    del ref
+    session_invariants(core_a, both["a"][0])
+
+    _, metrics = http(f"{base}/metrics")
+    check(metrics["interactions"] == 2 + 4 and metrics["created"] == 1 + 2,
+          f"/metrics {metrics}")
+    rep["metrics"] = metrics   # p50/p95 over the 2 warm and 4 served rounds
+    for sid in (sid_a, sid_b):
+        check(http(f"{base}/v1/sessions/{sid}", "DELETE")[1] == {"closed": True},
+              f"DELETE {sid}")
+    check(shutdown_gracefully(srv, timeout=60.0), "shutdown did not drain")
+    server.join(10.0)
+    check(len(mgr) == 0 and not server.is_alive(), "sessions left after shutdown")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(json.dumps(rep))
+    return counts
+
+
+def phase_gui(dev):
+    """The headless GUI session (module docstring, phase 9). Returns the
+    launch counts of its propagations."""
+    t_phase = time.perf_counter()
+    k = 2
+    video, labels = uint8_video(43, T, RH, RW, k)
+    prop, fuse = make_nets(dev, BF16)
+    s2m = init_params(S2MNetwork(dtype=BF16), torch.Generator().manual_seed(5))
+    mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ)
+    gui = GuiSession(prop, fuse, S2MController(s2m, k, device=dev),
+                     FBRSController(fbrs_net(), device=dev), video, k,
+                     mem=mem, device=dev)
+    del prop, fuse
+    core = gui.processor
+    calls, reads = [], []   # what the session hands the processor, in order
+    orig_interact, orig_update = core.interact, core.update_mask_only
+
+    def interact(mask, idx, **hooks):
+        calls.append(("interact", mask.clone(), idx))
+        reads.append(expected_reads(core, idx))
+        return orig_interact(mask, idx, **hooks)
+
+    def update_mask_only(mask, idx):
+        calls.append(("update", mask.clone(), idx))
+        return orig_update(mask, idx)
+
+    core.interact, core.update_mask_only = interact, update_mask_only
+    rep = {"phase": "gui", "video": [T, RH, RW, k], "propagation_s": []}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def stroke(mode, points, arg):
+        gui.start_interaction(mode)
+        for x, y in points:
+            gui.push_point(x, y, arg)
+        gui.end_path()
+
+    def propagate(want):
+        total, steps = [], []
+        _, ms = timed(lambda: gui.run_propagation(
+            total_cb=total.append, step_cb=lambda: steps.append(1)))
+        check(total == [want] and len(steps) == want,
+              f"propagation: total {total}, {len(steps)} steps, want {want}")
+        rep["propagation_s"].append(ms / 1e3)
+
+    def centre(ti, obj):
+        ys, xs = np.nonzero(labels[ti] == obj)
+        return float(xs.mean()), float(ys.mean())
+
+    cmr.reset_launch_counts()   # the gui path's launches start here
+    # Frame 0: scribbles for both objects, S2M; two free strokes, undo one.
+    for obj in (1, 2):
+        x, y = centre(0, obj)
+        stroke("scribble", [(x - 40, y - 20), (x, y), (x + 40, y + 20)], obj)
+    _, rep["s2m_predict_ms"] = timed(gui.predict)
+    check(set(np.unique(gui.current_mask())) <= {0, 1, 2}, "S2M labels")
+    x, y = centre(0, 1)
+    stroke("free", [(x - 30, y), (x + 30, y)], 1)
+    first = gui.predict().copy()
+    stroke("free", [(x, y - 30), (x, y + 30)], 2)
+    gui.predict()
+    check(gui.undo() and np.array_equal(gui.current_mask(), first),
+          "free undo did not restore the first stroke's labels")
+    propagate(T - 1)
+    # Frame 40: a positive and a negative click on object 1, undo one;
+    # a click on object 2; the fusion pass back to frame 1.
+    f40, f20 = 2 * T // 3, T // 3
+    gui.goto(f40)
+    gui.current_object = 1
+    x, y = centre(f40, 1)
+    gui.start_interaction("click")
+    rep["click_ms"] = []
+    for cx, cy, neg in ((x, y, False),
+                        (min(x + 60, RW - 1), min(y + 60, RH - 1), True)):
+        _, ms = timed(lambda: gui.push_point(cx, cy, neg))
+        rep["click_ms"].append(ms)
+        gui.predict()
+        if not neg:
+            after_first = gui.current_mask().copy()
+    check(gui.undo() and np.array_equal(gui.current_mask(), after_first),
+          "click undo did not restore the first click's labels")
+    gui.set_object(2)
+    x, y = centre(f40, 2)
+    gui.start_interaction("click")
+    _, ms = timed(lambda: gui.push_point(x, y, False))
+    rep["click_ms"].append(ms)
+    gui.predict()
+    propagate((T - 1 - f40) + (f40 - 1))
+    # Frame 20: local control on a 200x150 box, a free stroke inside.
+    gui.goto(f20)
+    gui.enter_local((RW // 2 - 100, RW // 2 + 99, RH // 2 - 75, RH // 2 + 74))
+    stroke("free", [(20, 20), (180, 130)], 1)
+    gui.predict()
+    check(gui.compose_local_frame().shape == (150, 200, 3), "local canvas")
+    gui.finish_local()
+    propagate((f40 - f20 - 1) + (f20 - 1))
+    counts = cmr.launch_counts()
+    check(counts == {name: n * sum(reads) for name, n in
+                     cmr.launches_per_read(BF16, 0).items()},
+          f"gui launches {counts} for {sum(reads)} reads")
+    rep["reads"] = sum(reads)
+
+    for mode in ("davis", "fade", "light"):
+        gui.viz_mode = mode
+        viz = gui.compose_frame()
+        check(viz.shape == (RH, RW, 3) and viz.dtype == np.uint8, f"{mode} frame")
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gui.save_masks(tmp)
+        names = sorted(os.listdir(tmp))
+        check(len(names) == T, f"{len(names)} mask files")
+        for ti, name in enumerate(names):
+            check(np.array_equal(np.asarray(Image.open(os.path.join(tmp, name))),
+                                 core.np_masks[ti]), f"saved mask {name}")
+    session_invariants(core, core.np_masks)
+
+    # The masks the session handed the processor, through a direct core.
+    ref = InferenceCore(core.prop_net, core.fuse_net, video, k, mem=mem,
+                        device=dev)
+    for kind, mask, idx in calls:
+        (ref.interact if kind == "interact" else ref.update_mask_only)(mask, idx)
+    check(np.array_equal(ref.np_masks, core.np_masks),
+          "the GUI session's labels differ from a direct core's")
+    rep["processor_calls"] = [(kind, idx) for kind, _, idx in calls]
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(json.dumps(rep))
+    return counts
+
+
 def main():
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1106,9 +1451,19 @@ def main():
     t0 = time.perf_counter()
     phase_fbrs(dev)
     log(f"fbrs phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    with cudnn_mode(benchmark=False, deterministic=True):   # as in davis
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(dev)
+        log(f"serve phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        gui_launches = phase_gui(dev)
+        log(f"gui phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
-        paths = ({"session": launches_bf16, "davis": davis_launches} if dtype == BF16
+        paths = ({"session": launches_bf16, "davis": davis_launches,
+                  "serve": serve_launches, "gui": gui_launches} if dtype == BF16
                  else {"session_fp32": launches_f32})
         by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         session = paths["session" if dtype == BF16 else "session_fp32"]

@@ -50,7 +50,7 @@ class DAVISProcessor:
         and the interacted frame index (reference davis_processor.py:38-70)."""
         scribble, idx = select_single_frame(scribble)
         scr_mask = scribbles2mask(scribble, (self.h, self.w))[0]
-        mask = self.s2m.interact(self.processor.frame(idx),
+        mask = self.s2m.interact(self.processor.get_image(idx),
                                  self._padded_hard_mask(idx), scr_mask,
                                  aggregate_hard=True)
         return mask, idx

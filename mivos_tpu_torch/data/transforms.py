@@ -1,5 +1,6 @@
 """Host-side image transforms (counterpart of the parts of
-mivos_tpu/data/transforms.py that the DAVIS evaluation uses)."""
+mivos_tpu/data/transforms.py that the DAVIS evaluation and the GUI
+session use)."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -17,6 +18,12 @@ def im_normalize(img: np.ndarray) -> np.ndarray:
     if img.max() > 1.5:
         img = img / 255.0
     return (img - IM_MEAN) / IM_STD
+
+
+def im_denormalize(img: np.ndarray) -> np.ndarray:
+    """Inverse of im_normalize, clipped to [0, 1]
+    (reference inv_im_trans, range_transform.py:10-12)."""
+    return np.clip(np.asarray(img, np.float32) * IM_STD + IM_MEAN, 0.0, 1.0)
 
 
 def all_to_onehot(masks: np.ndarray, labels: Sequence[int]) -> np.ndarray:

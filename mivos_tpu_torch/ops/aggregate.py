@@ -24,3 +24,14 @@ def aggregate_wbg(prob: torch.Tensor, keep_bg: bool = False,
         logits = logits * 1000.0
     out = torch.softmax(logits, dim=0)
     return out if keep_bg else out[1:]
+
+
+def aggregate_sbg(prob: torch.Tensor, keep_bg: bool = False,
+                  hard: bool = False) -> torch.Tensor:
+    """As aggregate_wbg with a fixed background probability of 0.5
+    (reference model/aggregate.py:4-20)."""
+    logits = _logit(torch.cat([torch.full_like(prob[:1], 0.5), prob], dim=0))
+    if hard:
+        logits = logits * 1000.0
+    out = torch.softmax(logits, dim=0)
+    return out if keep_bg else out[1:]

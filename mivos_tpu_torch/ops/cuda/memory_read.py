@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import functools
 import math
+import threading
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -79,6 +80,9 @@ FULL_WAVES = 0.85      # split_count's target share of full waves
 
 # Launches of each kernel since the last reset: a wrapper adds one
 # exactly where it launches its kernel; the plain versions never count.
+# Sessions on several threads (the server's handlers) launch at once, so
+# every read or write of the counts holds _LAUNCHES_LOCK.
+_LAUNCHES_LOCK = threading.Lock()
 _LAUNCHES: Dict[str, int] = {
     "candidates_bf16": 0, "candidates_f32": 0, "candidates_merge": 0,
     "refine_bf16": 0, "refine_f32": 0, "refine_merge": 0,
@@ -102,12 +106,14 @@ def launches_per_read(bank_dtype: torch.dtype, n_refine: int) -> Dict[str, int]:
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(_LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def scaled_query(query_k: torch.Tensor) -> torch.Tensor:
@@ -331,7 +337,8 @@ def _launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    _LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def _lib():

@@ -63,6 +63,14 @@ def one_hot_mask(labels: torch.Tensor, num_objects: int) -> torch.Tensor:
     return oh[..., None]
 
 
+def labels_to_probs(labels, num_objects: int) -> torch.Tensor:
+    """Label map (H, W) (numpy or tensor) -> (K+1, H, W, 1) hard fp32
+    probabilities, background first (1 - sum of the objects): the mask
+    `InferenceCore.interact` takes."""
+    fg = one_hot_mask(torch.as_tensor(labels), num_objects)
+    return torch.cat([1.0 - fg.sum(0, keepdim=True), fg], dim=0)
+
+
 def cast_params_bf16(module: nn.Module) -> nn.Module:
     """Pre-cast every conv's weight and bias to bfloat16 IN PLACE,
     keeping FrozenBatchNorm statistics in fp32 (they fold in fp32 and
