@@ -106,10 +106,45 @@ Phases (any failure exits non-zero before the final line):
              handed the processor, replayed through a direct core, give
              equal labels. Prints S2M and click ms and each
              propagation's seconds.
+ 10. fusion_gen  python -m mivos_tpu_torch.generate_fusion's main() in
+             process on a DAVIS-layout tree of three 40-frame 480x854
+             JPEG videos with palette PNG annotations, K = 2, 3 and 0
+             (no usable object), --separation 10, bf16, the random-init
+             full-width PropagationNetwork saved as a reference-named
+             .pth, deterministic cuDNN plans: every video directory, no
+             staging left, the K = 0 video's directory empty, the PNG
+             count (reference frames x usable objects x frames); one
+             reference frame equal to a direct FusionGenerator run to
+             within one uint8 level; launch counters, zeroed just
+             before, equal to its reads times the launches per read; a
+             re-run with --skip_done launches nothing; then the gate at
+             every (K, N, M) the run read with, fp32 and bf16, as after
+             the davis phase. Prints seconds and propagated frames/s per
+             video.
+ 11. train   FusionDataset over phase 10's output, Loader (batch 12,
+             8 workers, pinned memory) and FusionTrainer on the card:
+             fp32, 384x384 crops, the reader's weights from phase 10's
+             .pth (attention_read_state_dict), FusionNet random-init;
+             1 warm and 20 measured steps (iterations 20, an lr drop at
+             10, cuDNN autotune on): finite losses, the lr dropping at
+             step 10; steps/s and samples/s over the measured window's
+             wall time (loader waits and steps), median step ms, device
+             ms (CUDA events) and loader wait, peak memory. Then, with
+             deterministic plans, one step at batch 2 on the card and on the CPU from
+             the same weights and batch (losses within 1e-4 relative,
+             weights within 1e-6), and a checkpoint round trip (save,
+             restore into a fresh trainer, one step on both: equal
+             weights); the step alone (no loader worker running) and
+             under the profiler; the loader alone, batches/s over 24
+             batches past the 16 its workers queue at the start; then
+             `python -m mivos_tpu_torch.train
+             --iterations 3` in a subprocess (exit 0, its checkpoint
+             written). Phase 10 also splits its time into propagation
+             and PNG writes.
 The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds, the
-davis run, serve and gui; fp32: the session's fp32 rounds),
+davis run, serve, gui and fusion_gen; fp32: the session's fp32 rounds),
 "max_abs_err" is the worst of the gates of its bank dtype, "ms",
 "plain_ms" and "bound_ms" are at M = 21060. The last line is
 {"ok": true, "device": {...}}.
@@ -120,6 +155,7 @@ import io
 import json
 import os
 import subprocess
+import sys
 import tempfile
 import threading
 import time
@@ -129,9 +165,16 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from mivos_tpu_torch.config import MemoryConfig
+from mivos_tpu_torch import generate_fusion
+from mivos_tpu_torch.checkpoint.manager import CheckpointManager
+from mivos_tpu_torch.checkpoint.pth import attention_read_state_dict
+from mivos_tpu_torch.config import MemoryConfig, TrainConfig
 from mivos_tpu_torch.core.davis_processor import DAVISProcessor
+from mivos_tpu_torch.core.fusion_generator import FusionGenerator
 from mivos_tpu_torch.core.inference import InferenceCore
+from mivos_tpu_torch.data.fusion_dataset import FusionDataset
+from mivos_tpu_torch.data.loader import Loader, ShardedSampler
+from mivos_tpu_torch.data.video_datasets import DAVISTestDataset
 from mivos_tpu_torch.eval.davis_interactive import run_local_interactive
 from mivos_tpu_torch.eval.davis_metrics import SequenceJF
 from mivos_tpu_torch.eval.robot import InteractiveScribblesRobot
@@ -151,6 +194,7 @@ from mivos_tpu_torch.ops.cuda import memory_read as cmr
 from mivos_tpu_torch.ops.cuda.build import load_library
 from mivos_tpu_torch.ops.memory_read import memory_read
 from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_gracefully
+from mivos_tpu_torch.train.trainer import FusionTrainer
 from mivos_tpu_torch.utils.tensor import (compute_pad, labels_to_probs,
                                           one_hot_mask, pad_divide_by, unpad)
 
@@ -162,6 +206,10 @@ DAVIS_T, DAVIS_ROUNDS, DAVIS_SEQS = 50, 8, ((101, 2), (102, 3))  # (seed, K)
 PROPAGATE_ON = (2, 5, 7)     # reference davis_processor.py:34
 FBRS_CLICKS, FBRS_CHECK = 5, (240, 320, 3)   # check: h, w, clicks
 FBRS_LOGIT_GAIN = 10.0       # as tests/test_torch_fbrs.py
+GEN_T, GEN_SEPARATION = 40, 10
+FG_VIDEOS = ((61, 2), (62, 3), (63, 0))   # (seed, K); K = 0: no usable object
+TRAIN_BATCH, TRAIN_STEPS = 12, 20
+LOADER_BATCHES = 24   # the loader alone, past its initial queue
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
 # The Pallas code each phase's kernels replace: the three pallas_calls'
 # kernels, and the split of fp32 key tiles in `_affinity` that the
@@ -498,16 +546,17 @@ def bank_prefix(x, k, m, dtype):
     return buf[:, :m]
 
 
-def phase_gate_davis(banks, shapes):
-    """The gate again, fp32 and bf16, at every (K, N, M) the DAVIS path
-    read with, on gate banks laid out as the bank's live prefix (no
-    invalid slots, as there). Returns each kernel's worst error."""
+def phase_gate_davis(banks, shapes, path="davis"):
+    """The gate again, fp32 and bf16, at every (K, N, M) a path (the
+    DAVIS path, fusion_gen) read with, on gate banks laid out as the
+    bank's live prefix (no invalid slots, as there). Returns each
+    kernel's worst error."""
     mk_all, mv_all, q = banks
     kernel_reps, worst = [], {"vs_plain_mean": 0.0, "vs_exact_mean": 0.0,
                               "vs_exact_max": 0.0}
     for k, n, m in sorted(shapes):
         check(n == q.shape[0] and k <= mk_all.shape[0] and m <= mk_all.shape[1],
-              f"DAVIS read shape {(k, n, m)} outside the gate banks "
+              f"{path} read shape {(k, n, m)} outside the gate banks "
               f"{tuple(mk_all.shape)}, N = {q.shape[0]}")
         for dtype in (F32, BF16):
             reps, kernel_rep = gate_read(bank_prefix(mk_all, k, m, dtype),
@@ -517,7 +566,7 @@ def phase_gate_davis(banks, shapes):
                 for key in worst:
                     worst[key] = max(worst[key], rep[key] / rep["readout_scale"])
     errs = worst_errs(kernel_reps)
-    log(json.dumps({"davis_gate_shapes_KNM": sorted(shapes),
+    log(json.dumps({f"{path}_gate_shapes_KNM": sorted(shapes),
                     "dtypes": ["float32", "bfloat16"],
                     "worst_over_readout_scale": worst,
                     "per_kernel_max_abs_err": errs}))
@@ -748,17 +797,29 @@ def phase_s2m(dev):
 
 
 @contextlib.contextmanager
+def recorded_read_shapes(read_shapes):
+    """Add the (K, N, M) of every kernel read within the block to
+    `read_shapes`."""
+    orig_candidates = cmr.candidates_cuda
+
+    def candidates_cuda(rq, mem_k, mask, top_k, planes=None):
+        read_shapes.add((mem_k.shape[0], rq.rows, mem_k.shape[1]))
+        return orig_candidates(rq, mem_k, mask, top_k, planes)
+
+    cmr.candidates_cuda = candidates_cuda
+    try:
+        yield
+    finally:
+        cmr.candidates_cuda = orig_candidates
+
+
+@contextlib.contextmanager
 def watched_cores(calls, read_shapes):
     """Wrap InferenceCore.interact / update_mask_only for the duration:
     record each call per session, check the kernel launches it made
     against its memory reads, and check the session invariants. Record
     the (K, N, M) of every read in `read_shapes`."""
     orig_interact, orig_update = InferenceCore.interact, InferenceCore.update_mask_only
-    orig_candidates = cmr.candidates_cuda
-
-    def candidates_cuda(rq, mem_k, mask, top_k, planes=None):
-        read_shapes.add((mem_k.shape[0], rq.rows, mem_k.shape[1]))
-        return orig_candidates(rq, mem_k, mask, top_k, planes)
 
     def interact(self, mask, idx):
         reads, before = expected_reads(self, idx), cmr.launch_counts()
@@ -778,12 +839,11 @@ def watched_cores(calls, read_shapes):
         return labels
 
     InferenceCore.interact, InferenceCore.update_mask_only = interact, update_mask_only
-    cmr.candidates_cuda = candidates_cuda
     try:
-        yield
+        with recorded_read_shapes(read_shapes):
+            yield
     finally:
         InferenceCore.interact, InferenceCore.update_mask_only = orig_interact, orig_update
-        cmr.candidates_cuda = orig_candidates
 
 
 def phase_davis(dev):
@@ -1419,6 +1479,324 @@ def phase_gui(dev):
     return counts
 
 
+
+def write_davis_tree(root):
+    """A DAVIS-layout tree (trainval/JPEGImages/480p, Annotations/480p,
+    ImageSets/2017/train.txt) of FG_VIDEOS: GEN_T-frame RHxRW JPEG
+    videos and palette PNG annotations, K objects each (0: none usable).
+    Returns the video names."""
+    from PIL import Image
+
+    from mivos_tpu_torch.utils.palette import save_indexed_png
+
+    base = os.path.join(root, "trainval")
+    names = []
+    for seed, k in FG_VIDEOS:
+        name = f"vid{seed}_k{k}"
+        names.append(name)
+        video, labels = uint8_video(seed, GEN_T, RH, RW, k)
+        for sub in ("JPEGImages", "Annotations"):
+            os.makedirs(os.path.join(base, sub, "480p", name))
+        for f in range(GEN_T):
+            Image.fromarray(video[f]).save(os.path.join(
+                base, "JPEGImages", "480p", name, f"{f:05d}.jpg"), quality=95)
+            save_indexed_png(os.path.join(base, "Annotations", "480p", name,
+                                          f"{f:05d}.png"), labels[f])
+    os.makedirs(os.path.join(base, "ImageSets", "2017"))
+    with open(os.path.join(base, "ImageSets", "2017", "train.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    return names
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, totals):
+    """Adds the host seconds of every call of owner.<name> (which must
+    end in a host copy or write) to totals[name] within the block."""
+    orig = getattr(owner, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return orig(*args, **kwargs)
+        finally:
+            totals[name] = totals.get(name, 0.0) + time.perf_counter() - t0
+
+    setattr(owner, name, timed)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+class _Stamped(io.TextIOBase):
+    """stdout that keeps each line with the perf_counter time it ended."""
+
+    def __init__(self):
+        self.lines, self._buf = [], ""
+
+    def write(self, text):
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+
+def usable_objects(gt, frame):
+    """generate_fusion's rule: objects with more than 100 pixels on the
+    frame, at most 5."""
+    return [k for k in range(gt.shape[0])
+            if (gt[k, frame] > 0.5).sum() > generate_fusion.MIN_PIXELS
+            ][:generate_fusion.MAX_OBJECTS]
+
+
+def phase_fusion_gen(dev, tmp):
+    """python -m mivos_tpu_torch.generate_fusion in process (module
+    docstring, phase 10). Returns the launch counts of its run, the
+    tree's root, the fusion-data root and the weights file."""
+    from PIL import Image
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "davis")
+    names = write_davis_tree(root)
+    net = init_params(PropagationNetwork(), torch.Generator().manual_seed(0))
+    pth = os.path.join(tmp, "propagation_model.pth")
+    torch.save(net.state_dict(), pth)   # reference names: loads as the .pth
+    del net
+    fd_root = os.path.join(tmp, "fusion_data")
+    out = os.path.join(fd_root, "davis")
+    argv = ["--dataset", "DAVIS", "--davis_root", root, "--output", out,
+            "--separation", str(GEN_SEPARATION), "--model", pth,
+            "--device", str(dev)]
+    dataset = DAVISTestDataset(os.path.join(root, "trainval"), imset="2017/train.txt")
+    plan = {}   # video -> (reference frames, usable objects on each)
+    for i, name in enumerate(dataset.videos):
+        gt = dataset[i]["gt"]
+        plan[name] = [(f, usable_objects(gt, f))
+                      for f in range(0, GEN_T, GEN_SEPARATION)]
+        plan[name] = [(f, objs) for f, objs in plan[name] if objs]
+    reads = sum(len(refs) * (GEN_T - 1) for refs in plan.values())
+
+    cmr.reset_launch_counts()   # the fusion_gen path's launches start here
+    stamped, split, read_shapes = _Stamped(), {}, set()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped), \
+            timed_calls(FusionGenerator, "interact_mask", split), \
+            timed_calls(generate_fusion, "_save_png", split), \
+            recorded_read_shapes(read_shapes):
+        generate_fusion.main(argv)
+    torch.cuda.synchronize()
+    counts = cmr.launch_counts()
+    check(counts == {name: n * reads for name, n in
+                     cmr.launches_per_read(BF16, 0).items()},
+          f"fusion_gen launches {counts} for {reads} reads")
+    check([line for _, line in stamped.lines] == names + ["ALL-DONE"],
+          f"generate_fusion printed {stamped.lines}")
+    rep = {"phase": "fusion_gen", "videos": {}, "reads": reads,
+           "separation": GEN_SEPARATION, "frames": GEN_T, "hw": [RH, RW]}
+    prev = t0
+    for (stamp, name) in stamped.lines[:len(names)]:
+        refs = plan[name]
+        pngs = [os.path.join(d, f) for d, _, files in
+                os.walk(os.path.join(out, name)) for f in files]
+        want = sum(len(objs) for _, objs in refs) * GEN_T
+        check(len(pngs) == want, f"{name}: {len(pngs)} PNGs, want {want}")
+        if not refs:
+            check(os.listdir(os.path.join(out, name)) == [],
+                  f"{name} has no usable object but its directory is not empty")
+        rep["videos"][name] = {
+            "K": [len(objs) for _, objs in refs], "refs": len(refs),
+            "seconds": stamp - prev, "pngs": len(pngs),
+            "propagated_frames_s": len(refs) * (GEN_T - 1) / (stamp - prev)}
+        prev = stamp
+    check(sorted(os.listdir(out)) == sorted(names), f"outputs {os.listdir(out)}")
+    rep["seconds"] = prev - t0
+    # Where the run's time went: propagation (interact_mask, ending in its
+    # download), PNG writes, and the rest (decoding the videos, the net).
+    rep["interact_mask_s"], rep["png_write_s"] = split["interact_mask"], split["_save_png"]
+
+    # One reference frame through a direct FusionGenerator on the same net.
+    name = names[0]
+    ref_frame, objs = plan[name][min(1, len(plan[name]) - 1)]
+    data = dataset[0]
+    direct = PropagationNetwork(dtype=BF16)
+    direct.load_state_dict(torch.load(pth, weights_only=True))
+    gen = FusionGenerator(direct, data["rgb"], mem_freq=MEM_FREQ, device=dev)
+    gen.reset(len(objs))
+    probs = gen.interact_mask(data["gt"][objs, ref_frame], ref_frame, 0, GEN_T - 1)
+    worst = 0
+    for ki, obj in enumerate(objs):
+        want = (probs[ki + 1] * 255).astype(np.uint8).astype(np.int16)
+        for f in range(GEN_T):
+            got = np.asarray(Image.open(os.path.join(
+                out, name, f"{ref_frame:05d}", f"{obj + 1:05d}", f"{f:05d}.png")),
+                np.int16)
+            worst = max(worst, int(np.abs(got - want[f]).max()))
+    rep["direct_max_uint8_diff"] = worst
+    check(worst <= 1, f"generate_fusion vs a direct FusionGenerator: {worst} levels")
+
+    cmr.reset_launch_counts()
+    stamped = _Stamped()
+    with contextlib.redirect_stdout(stamped):
+        generate_fusion.main(argv + ["--skip_done"])
+    check(sum(cmr.launch_counts().values()) == 0, "--skip_done launched kernels")
+    check(sum("(skipped)" in line for _, line in stamped.lines) == len(names),
+          f"--skip_done printed {stamped.lines}")
+    check(not [d for d in os.listdir(out) if d.endswith(".__tmp__")],
+          "staging directories left")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    rep["read_shapes"] = len(read_shapes)
+    log(json.dumps(rep))
+    check(len(read_shapes) > 0, "no read shape recorded")
+    return counts, read_shapes, root, fd_root, pth
+
+
+def phase_train(dev, tmp, root, fd_root, pth):
+    """FusionDataset, Loader and FusionTrainer on the card over phase 10's
+    output (module docstring, phase 11)."""
+    t_phase = time.perf_counter()
+    im_root = os.path.join(root, "trainval", "JPEGImages", "480p")
+    gt_root = os.path.join(root, "trainval", "Annotations", "480p")
+    cfg = TrainConfig(iterations=TRAIN_STEPS, steps=(TRAIN_STEPS // 2,),
+                      batch_size=TRAIN_BATCH)
+    dataset = FusionDataset(im_root, gt_root, fd_root, seed=cfg.seed)
+    check(len(dataset) == sum(k > 0 for _, k in FG_VIDEOS),
+          f"{len(dataset)} training videos")
+    # A sampler over more indices than videos: sample idx draws video
+    # idx % len in its first trials, so each batch holds 12 samples.
+    sampler = ShardedSampler(TRAIN_BATCH * (TRAIN_STEPS + 2), seed=cfg.seed)
+    loader = Loader(dataset, TRAIN_BATCH, sampler=sampler, num_workers=8,
+                    pin_memory=True)
+    attn = attention_read_state_dict(pth)
+    trainer = FusionTrainer(cfg, attn, device=dev)
+    rep = {"phase": "train", "batch": TRAIN_BATCH, "crop": FusionDataset.CROP,
+           "steps": TRAIN_STEPS, "lr_drop_at": TRAIN_STEPS // 2}
+    batches = iter(loader)
+    step_ms, device_ms, wait_ms, losses, lrs = [], [], [], [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with cudnn_mode(benchmark=True):   # training's setting: fixed shapes
+        for i in range(TRAIN_STEPS + 1):   # step 0 warms up
+            t0 = time.perf_counter()
+            if i == 1:
+                window_t0 = t0   # the measured window starts here
+            batch = next(batches)
+            t1 = time.perf_counter()
+            lrs.append(trainer.lr)
+            start.record()
+            out = trainer.train_step(batch)
+            end.record()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            losses.append(float(out["total_loss"]))
+            if i:
+                wait_ms.append((t1 - t0) * 1e3)
+                step_ms.append((t2 - t1) * 1e3)
+                device_ms.append(start.elapsed_time(end))
+    window_s = time.perf_counter() - window_t0
+    batches.close()
+    check(all(np.isfinite(losses)), f"non-finite losses {losses}")
+    drop = TRAIN_STEPS // 2
+    check(all(lr == cfg.lr for lr in lrs[:drop]) and
+          all(abs(lr - cfg.lr * cfg.gamma) < 1e-12 for lr in lrs[drop:]),
+          f"learning rates {lrs}")
+    med = float(np.median(step_ms))
+    # The rates: all the measured window's work (loader waits and steps)
+    # over its wall time; the medians are per-layer numbers.
+    rep.update({
+        "losses": losses, "lr": lrs, "step_ms": step_ms, "wait_ms": wait_ms,
+        "window_s": window_s,
+        "steps_s": TRAIN_STEPS / window_s,
+        "samples_s": TRAIN_STEPS * TRAIN_BATCH / window_s,
+        "median_step_ms": med, "median_device_ms": float(np.median(device_ms)),
+        "median_wait_ms": float(np.median(wait_ms)),
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+
+    with cudnn_mode(False, deterministic=True):
+        # Card against CPU: one step at batch 2 from the same weights.
+        small = {k: (v if k == "info" else v[:2]) for k, v in batch.items()}
+        card = FusionTrainer(cfg, attn, device=dev)
+        cpu = FusionTrainer(cfg, attn, device="cpu")
+        got, ref = card.train_step(small), cpu.train_step(small)
+        loss_rel = max(abs(float(got[k]) - float(ref[k])) / max(abs(float(ref[k])), 1e-12)
+                       for k in ref if k != "p")
+        w_err = max((card.fuse_net.state_dict()[k].cpu() - v).abs().max().item()
+                    for k, v in cpu.fuse_net.state_dict().items())
+        rep["card_vs_cpu"] = {"loss_max_rel": loss_rel, "weight_max_abs": w_err}
+        # Losses: fp32 convolutions in cuDNN's order against the CPU's;
+        # weights: one Adam step moves each by ~lr = 1e-4, so 1% of it.
+        check(loss_rel <= 1e-4 and w_err <= 1e-6, f"card vs CPU {rep['card_vs_cpu']}")
+        del cpu
+        # Checkpoint round trip: save, restore into a fresh trainer, one
+        # step on both: equal weights.
+        mgr = CheckpointManager(os.path.join(tmp, "ckpt"))
+        mgr.save(trainer.it, trainer.state_dict())
+        restored = FusionTrainer(cfg, attn, device=dev)
+        restored.load_state_dict(mgr.restore())
+        check(restored.it == trainer.it == TRAIN_STEPS + 1, "restored iteration")
+        trainer.train_step(batch)
+        restored.train_step(batch)
+        check(all(torch.equal(v, restored.fuse_net.state_dict()[k])
+                  for k, v in trainer.fuse_net.state_dict().items()),
+              "a restored trainer's step differs from the saved one's")
+    del restored, card
+    # The step alone: the last batch again with no loader worker running
+    # (the measured loop's steps share the host with 8 loader workers),
+    # and one step under the profiler.
+    with cudnn_mode(benchmark=True):
+        alone = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            alone.append((time.perf_counter() - t0) * 1e3)
+        rep["alone_step_ms"] = alone[1:]
+        rep["alone_median_step_ms"] = float(np.median(alone[1:]))
+        rep["step_profile"] = device_profile(lambda: trainer.train_step(batch))
+    del trainer, loader
+
+    # The loader alone, past the batches its workers queue at the start
+    # (the measured loop drew most of its batches from that queue, filled
+    # during the warm step): the rate it sustains.
+    queued = 2 * 8   # DataLoader's prefetch_factor x workers
+    fed = iter(Loader(dataset, TRAIN_BATCH, sampler=ShardedSampler(
+        TRAIN_BATCH * (queued + LOADER_BATCHES), seed=cfg.seed),
+        num_workers=8, pin_memory=True))
+    for _ in range(queued):
+        next(fed)
+    t0 = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(fed)
+    rep["loader_batches_s"] = LOADER_BATCHES / (time.perf_counter() - t0)
+    fed.close()
+
+    # The entry point as a user runs it, on the same data.
+    save_dir = os.path.join(tmp, "saves")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "mivos_tpu_torch.train", "--id", "smoke",
+         "--im_root", im_root, "--gt_root", gt_root, "--fd_root", fd_root,
+         "--load_prop", pth, "--iterations", "3", "--batch_size", "2",
+         "--save_every", "3", "--report_every", "1", "--num_workers", "4",
+         "--save_dir", save_dir],
+        capture_output=True, text=True, timeout=600)
+    rep["cli_s"] = time.perf_counter() - t0
+    check(r.returncode == 0, f"train CLI exited {r.returncode}: {r.stderr[-2000:]}")
+    check(os.listdir(os.path.join(save_dir, "smoke")) == ["checkpoint_3.pth"],
+          f"train CLI wrote {os.listdir(os.path.join(save_dir, 'smoke'))}")
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(json.dumps(rep))
+    log(json.dumps({"metric": "fusion_train_step_b12_384", "window_s": window_s,
+                    "steps_s": rep["steps_s"], "samples_s": rep["samples_s"],
+                    "median_step_ms": med,
+                    "median_device_ms": rep["median_device_ms"],
+                    "median_wait_ms": rep["median_wait_ms"],
+                    "alone_median_step_ms": rep["alone_median_step_ms"],
+                    "loader_batches_s": rep["loader_batches_s"],
+                    "alone_device_busy_ms": rep["step_profile"]["device_busy_ms"],
+                    "peak_gib": rep["peak_gib"]}))
+
+
 def main():
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1443,7 +1821,6 @@ def main():
     davis_launches, davis_shapes = phase_davis(dev)
     torch.cuda.empty_cache()
     davis_errs = phase_gate_davis(banks, davis_shapes)
-    del banks
     torch.cuda.empty_cache()
     phase_davis_check(dev)
     log(f"davis phase: {time.perf_counter() - t0:.1f} s")
@@ -1460,10 +1837,23 @@ def main():
         t0 = time.perf_counter()
         gui_launches = phase_gui(dev)
         log(f"gui phase: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            fusion_gen_launches, fusion_gen_shapes, *data = phase_fusion_gen(dev, tmp)
+            torch.cuda.empty_cache()
+            fusion_gen_errs = phase_gate_davis(banks, fusion_gen_shapes, "fusion_gen")
+            del banks
+            log(f"fusion_gen phase: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            phase_train(dev, tmp, *data)
+            log(f"train phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
         paths = ({"session": launches_bf16, "davis": davis_launches,
-                  "serve": serve_launches, "gui": gui_launches} if dtype == BF16
+                  "serve": serve_launches, "gui": gui_launches,
+                  "fusion_gen": fusion_gen_launches} if dtype == BF16
                  else {"session_fp32": launches_f32})
         by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         session = paths["session" if dtype == BF16 else "session_fp32"]
@@ -1474,8 +1864,8 @@ def main():
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[phase], "bank": str(dtype)[6:],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
-            "max_abs_err": max(errs[str(dtype)[6:]][phase],
-                               davis_errs[str(dtype)[6:]][phase]),
+            "max_abs_err": max(e[str(dtype)[6:]][phase]
+                               for e in (errs, davis_errs, fusion_gen_errs)),
             "ms": at["kernel_ms"][phase], "plain_ms": at["plain_ms"][phase],
             "bound_ms": at["bound_ms"][phase], "bound_by": at["bound_by"][phase],
             "library_ms": None,   # no PyTorch call computes a thresholded top-k read

@@ -97,8 +97,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 def state_dict_from_flax(params: Mapping,
                          rules=_RULES) -> Dict[str, torch.Tensor]:
     """Flax tree ({'params': ...} or the bare tree) of PropagationNetwork,
-    FusionNet or S2MNetwork -> the port's state_dict (fp32 torch
-    tensors). `rules` renames the dotted flax paths."""
+    FusionNet, S2MNetwork or AttentionReadNetwork (its modules carry the
+    propagation names) -> the port's state_dict (fp32 torch tensors).
+    `rules` renames the dotted flax paths."""
     if "params" in params and isinstance(params["params"], Mapping):
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}

@@ -3,9 +3,14 @@ the f-BRS click models) -> the port's modules. The port's module names
 are the reference's, so the state_dicts load as they are."""
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Union
 
 import torch
+
+# The propagation modules the training-time attention reader shares
+# (mivos_tpu/checkpoint/convert.py:111-117).
+ATTENTION_READ_PREFIXES = ("mask_rgb_encoder.", "rgb_encoder.", "kv_m_f16.",
+                           "kv_q_f16.")
 
 
 def read_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -23,6 +28,28 @@ def load_reference_pth(module: torch.nn.Module, path: str) -> torch.nn.Module:
     """Load a reference .pth into `module` with strict=True."""
     module.load_state_dict(read_state_dict(path), strict=True)
     return module
+
+
+def attention_read_state_dict(
+        source: Union[str, Mapping[str, torch.Tensor], torch.nn.Module]
+) -> Dict[str, torch.Tensor]:
+    """The AttentionReadNetwork's weights from a propagation network: a
+    reference `propagation_model.pth` path, a propagation state_dict
+    (from `read_state_dict` or `state_dict_from_flax`), or the port's
+    PropagationNetwork. Only the four shared modules are kept, in fp32,
+    so that the reader loads them with strict=True: the reference's
+    strict=False load (fusion_model.py:185-188) made explicit."""
+    if isinstance(source, str):
+        source = read_state_dict(source)
+    elif isinstance(source, torch.nn.Module):
+        source = source.state_dict()
+    sd = {k: v.detach().to(torch.float32) for k, v in source.items()
+          if k.startswith(ATTENTION_READ_PREFIXES)}
+    missing = [p for p in ATTENTION_READ_PREFIXES
+               if not any(k.startswith(p) for k in sd)]
+    if missing:
+        raise KeyError(f"propagation weights lack {missing}")
+    return sd
 
 
 def detect_fbrs_model(sd: Mapping[str, torch.Tensor]) -> Dict:

@@ -74,11 +74,11 @@ class InferenceCore:
                  mem: MemoryConfig = MemoryConfig(),
                  device: torch.device | str = "cuda"):
         self.device = torch.device(device)
-        # MemoryConfig is the single source of the read's top_k; a
-        # shallow copy shares the weights (like flax's clone).
-        if prop_net.top_k != mem.top_k:
+        # MemoryConfig is the single source of the read's top_k and km;
+        # a shallow copy shares the weights (like flax's clone).
+        if (prop_net.top_k, prop_net.km) != (mem.top_k, mem.km):
             prop_net = copy.copy(prop_net)
-            prop_net.top_k = mem.top_k
+            prop_net.top_k, prop_net.km = mem.top_k, mem.km
         for net in (prop_net, fuse_net):
             if net is not None:
                 prepare_net(net, self.device)

@@ -1,6 +1,6 @@
-"""DAVIS test sequences (counterpart of
-mivos_tpu/data/video_datasets.py::DAVISTestDataset; reference
-dataset/davis_test_dataset.py).
+"""Whole-video datasets: DAVIS and BL30K (counterpart of
+mivos_tpu/data/video_datasets.py::DAVISTestDataset and BLTestDataset;
+reference dataset/davis_test_dataset.py and dataset/bl_test_dataset.py).
 
 Returns numpy NHWC dicts:
   rgb:  (T, H, W, 3) float32, ImageNet-normalized
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import os
 from os import path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -82,6 +82,44 @@ class DAVISTestDataset:
             path.join(self.image_dir, video, f"{f:05d}.jpg")))
             for f in range(t)]).astype(np.float32)
         lab, labels = self.load_labels(index)
+        gt = all_to_onehot(lab, labels).astype(np.float32)[..., None]
+        return {
+            "rgb": rgb,
+            "gt": gt,
+            "info": {"name": video, "num_frames": t, "labels": labels},
+        }
+
+
+class BLTestDataset:
+    """BL30K loader with start/end video-range slicing (reference
+    bl_test_dataset.py:17-79). root layout: JPEGImages/<video>/%05d.jpg,
+    Annotations/<video>/%05d.png; labels from every frame."""
+
+    def __init__(self, root: str, start: Optional[int] = None,
+                 end: Optional[int] = None):
+        self.image_dir = path.join(root, "JPEGImages")
+        self.mask_dir = path.join(root, "Annotations")
+        videos = sorted(os.listdir(self.image_dir))
+        if start is not None and end is not None:
+            videos = videos[start:end + 1]
+        self.videos = videos
+        self.num_frames = {
+            v: len(os.listdir(path.join(self.image_dir, v))) for v in videos}
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def __getitem__(self, index: int) -> Dict:
+        video = self.videos[index]
+        t = self.num_frames[video]
+        rgb = np.stack([im_normalize(_load_rgb(
+            path.join(self.image_dir, video, f"{f:05d}.jpg")))
+            for f in range(t)]).astype(np.float32)
+        lab = np.stack([_load_palette_mask(
+            path.join(self.mask_dir, video, f"{f:05d}.png"))
+            for f in range(t)])
+        labels = np.unique(lab)
+        labels = labels[labels != 0].tolist()
         gt = all_to_onehot(lab, labels).astype(np.float32)[..., None]
         return {
             "rgb": rgb,

@@ -90,6 +90,7 @@ class PropagationNetwork(nn.Module):
                  read_refine: int = 0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.top_k = top_k
+        self.km: Optional[float] = None   # the kernelized read's sigma; InferenceCore sets it
         self.read_backend = read_backend
         self.read_refine = read_refine
         self.dtype = dtype
@@ -140,7 +141,8 @@ class PropagationNetwork(nn.Module):
         h16, w16 = k16.shape[-2:]
         qk = k16[0].flatten(1).t()  # (h16*w16, 128), row-major positions
         readout = _memory_read(mem_k, mem_v, qk, top_k=self.top_k,
-                               valid=valid, backend=self.read_backend,
+                               valid=valid, km=self.km, query_hw=(h16, w16),
+                               backend=self.read_backend,
                                n_refine=self.read_refine)
         readout = readout.transpose(1, 2).reshape(k, VAL_DIM, h16, w16)
         qv = v16.to(torch.float32).expand(k, -1, -1, -1)

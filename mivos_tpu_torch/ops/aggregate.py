@@ -35,3 +35,14 @@ def aggregate_sbg(prob: torch.Tensor, keep_bg: bool = False,
         logits = logits * 1000.0
     out = torch.softmax(logits, dim=0)
     return out if keep_bg else out[1:]
+
+
+def aggregate_wbg_channel(prob: torch.Tensor):
+    """Batched aggregate over the class axis of NCHW training batches
+    (reference model/aggregate.py:39-53; mivos_tpu/ops/aggregate.py::
+    aggregate_wbg_last on its class-last layout): prob (B, K, H, W)
+    foreground probabilities -> (logits, softmax), each (B, K+1, H, W)
+    with the derived background first."""
+    bg = torch.prod(1.0 - prob, dim=1, keepdim=True)
+    logits = _logit(torch.cat([bg, prob], dim=1))
+    return logits, torch.softmax(logits, dim=1)

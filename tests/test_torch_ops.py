@@ -63,7 +63,7 @@ def test_port_imports_no_jax_and_no_mivos_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 53  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 65  # every module was imported
 
 
 # ---------------------------------------------------------------- (b)
@@ -541,8 +541,10 @@ def test_launches_per_read_count_each_kernel_and_merge(dtype, n_refine):
 
 
 def test_memory_config_rejects_unported_km():
-    with pytest.raises(NotImplementedError):
-        MemoryConfig(km=5.6)
+    """MemoryConfig takes km, now that the km read is ported, and still
+    refuses a bad mem_freq. (The name is the one the test had when km was
+    refused; it is kept so that the test's record carries on.)"""
+    assert MemoryConfig(km=5.6).km == 5.6
     with pytest.raises(ValueError):
         MemoryConfig(mem_freq=0)
 
