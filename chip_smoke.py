@@ -141,11 +141,45 @@ Phases (any failure exits non-zero before the final line):
              --iterations 3` in a subprocess (exit 0, its checkpoint
              written). Phase 10 also splits its time into propagation
              and PNG writes.
+ 12. pretrain  synthetic pretraining (train/pretrain.py) with TF32 off:
+             (1) a PropPretrainer on the card and one on the CPU from the
+             same random-init weights, 48x48, 3 steps of chain_mix
+             (1, 2), deterministic plans: losses within 1e-4 relative,
+             every trained tensor within 3 * lr; (2) `python -m
+             mivos_tpu_torch.pretrain_synthetic` in process at full width
+             (the JAX recipe's first stages): prop 500 steps at 192x192,
+             lr 2e-4, chain 1, seeds from 1000, then chain-3 steps at
+             256x448, lr 1e-4, for CHAIN3_BOX_S seconds (saved and logged
+             through the CLI's writer); s2m 500 steps and fbrs 200 at
+             batch 4, both at 192x192; batches built by 4 worker
+             processes; per stage the median step, wait and CUDA-event
+             device ms, peak GiB, one profiled prop step at each shape,
+             and the mean loss and IoU
+             of its first and last 25 steps: every loss finite, the last
+             25 below the first 25 (chain 3: reported); the .pth files
+             load strictly; (3) one interaction on frame 0 of a held-out
+             20-frame 480x854 K = 2 synthetic video through InferenceCore,
+             bf16, on the kernels (launch counters, zeroed just before,
+             equal to its reads), with the pretrained and with a
+             random-init propagation net: mean IoU against the ground
+             truth and the share of object probabilities within 0.07 of
+             0.5, reported, and the same at 192x192, the first stage's
+             size; (4) the gate of phase 2 on banks of the
+             pretrained fp32 encoder, built as the JAX gate builds them
+             (scripts/pallas_kernel_check.py:84-116); (5) `python -m
+             mivos_tpu_torch.train_fusion_synthetic` in process from the
+             pretrained prop weights: 24 videos of 12 frames at 384x384,
+             separation 4, generate_fusion in fp32 (launch counters,
+             zeroed just before, equal to its reads times the fp32 launches
+             per read), 100 iterations at batch 12 with the loss
+             descending; its seconds, PNG share and losses.
 The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds, the
-davis run, serve, gui and fusion_gen; fp32: the session's fp32 rounds),
-"max_abs_err" is the worst of the gates of its bank dtype, "ms",
+davis run, serve, gui, fusion_gen and the pretrain phase's held-out
+session; fp32: the session's fp32 rounds and the pretrain phase's
+generate_fusion), "max_abs_err" is the worst of the gates of its bank
+dtype (random-init and pretrained banks), "ms",
 "plain_ms" and "bound_ms" are at M = 21060. The last line is
 {"ok": true, "device": {...}}.
 """
@@ -165,19 +199,23 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from mivos_tpu_torch import generate_fusion
-from mivos_tpu_torch.checkpoint.manager import CheckpointManager
-from mivos_tpu_torch.checkpoint.pth import attention_read_state_dict
+from mivos_tpu_torch import (generate_fusion, pretrain_synthetic,
+                             train_fusion_synthetic)
+from mivos_tpu_torch.checkpoint.manager import CheckpointManager, save_params
+from mivos_tpu_torch.checkpoint.pth import (attention_read_state_dict,
+                                            load_reference_pth, read_state_dict)
 from mivos_tpu_torch.config import MemoryConfig, TrainConfig
 from mivos_tpu_torch.core.davis_processor import DAVISProcessor
 from mivos_tpu_torch.core.fusion_generator import FusionGenerator
 from mivos_tpu_torch.core.inference import InferenceCore
 from mivos_tpu_torch.data.fusion_dataset import FusionDataset
 from mivos_tpu_torch.data.loader import Loader, ShardedSampler
+from mivos_tpu_torch.data.transforms import im_normalize
 from mivos_tpu_torch.data.video_datasets import DAVISTestDataset
 from mivos_tpu_torch.eval.davis_interactive import run_local_interactive
 from mivos_tpu_torch.eval.davis_metrics import SequenceJF
 from mivos_tpu_torch.eval.robot import InteractiveScribblesRobot
+from mivos_tpu_torch.generation.synthetic import labels_to_onehot, synthetic_sequence
 from mivos_tpu_torch.interactive.clicker import Clicker
 from mivos_tpu_torch.interactive.fbrs_controller import (FBRSController,
                                                          InteractiveController)
@@ -185,6 +223,7 @@ from mivos_tpu_torch.interactive.fbrs_predictor import fbrs_objective
 from mivos_tpu_torch.interactive.gui_session import GuiSession
 from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.interactive.scribbles import is_empty, scribbles2mask
+from mivos_tpu_torch.models import build_fbrs_from_state_dict
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
 from mivos_tpu_torch.models.fusion import FusionNet
 from mivos_tpu_torch.models.initializer import init_params
@@ -194,6 +233,7 @@ from mivos_tpu_torch.ops.cuda import memory_read as cmr
 from mivos_tpu_torch.ops.cuda.build import load_library
 from mivos_tpu_torch.ops.memory_read import memory_read
 from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_gracefully
+from mivos_tpu_torch.train.pretrain import PropPretrainer, batches
 from mivos_tpu_torch.train.trainer import FusionTrainer
 from mivos_tpu_torch.utils.tensor import (compute_pad, labels_to_probs,
                                           one_hot_mask, pad_divide_by, unpad)
@@ -210,6 +250,15 @@ GEN_T, GEN_SEPARATION = 40, 10
 FG_VIDEOS = ((61, 2), (62, 3), (63, 0))   # (seed, K); K = 0: no usable object
 TRAIN_BATCH, TRAIN_STEPS = 12, 20
 LOADER_BATCHES = 24   # the loader alone, past its initial queue
+# Pretraining: the JAX recipe's first stages (scripts/r5_train_pipeline.sh:23,32,36).
+PRE_LR, PRE_SEED, PRE_HW, PRE_WINDOW = 2e-4, 1000, 192, 25
+PRE_STEPS = {"prop": 500, "s2m": 500, "fbrs": 200}
+CHAIN3_HW, CHAIN3_LR, CHAIN3_SEED, CHAIN3_BOX_S = (256, 448), 1e-4, 2000, 30.0
+HELD_OUT_SEED, HELD_T, HELD_K = 777, 20, 2   # outside every training seed
+# Fusion on synthetic data: 24 videos (the JAX script's default) of 12
+# frames at 384x384, two batches an epoch (one sample per video an
+# epoch; the loader starts its workers anew each epoch).
+FS_VIDEOS, FS_FRAMES, FS_HW, FS_SEPARATION, FS_ITERS, FS_REPORT = 24, 12, 384, 4, 100, 10
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
 # The Pallas code each phase's kernels replace: the three pallas_calls'
 # kernels, and the split of fp32 key tiles in `_affinity` that the
@@ -330,12 +379,30 @@ def gate_banks(dev):
     return torch.cat(mks, 1), torch.cat(mvs, 1), q
 
 
+def shared_threshold(st_a, st_b):
+    """Phase A stats `st_a` with each row's threshold lowered to the
+    smaller of two pipelines' (a kernel's and its plain version's), the
+    threshold the readout kernel and its plain phase are compared on.
+    Where the two bisections part, the pipeline whose rounding put the
+    boundary entry on the midpoint counted it and ends with its threshold
+    at that entry, which the other rounding can put one ulp below; the
+    other pipeline ends below the entry, so both roundings keep it there.
+    On the higher threshold each read is right by its own affinity yet
+    the two differ by that entry's weight: up to 1.2% of the readout
+    scale in a row on a pretrained encoder's banks, 9e-4 in the mean
+    (tests/test_torch_gate.py)."""
+    st = st_a.clone()
+    st[:, 0] = torch.minimum(st_a[:, 0], st_b[:, 0])
+    return st
+
+
 def gate_read(mk, mv, q, valid):
     """Hold the read of one bank against its references: the whole read
     (n_refine 0 and 1) against its plain version (mean <= 1e-4 of the
     readout scale) and the exact torch.topk read (mean < 1e-3, max < 0.3
     of the scale), then each kernel alone against its plain phase on the
-    same inputs. Returns the whole-read reports and the per-kernel one."""
+    same inputs (the readout on shared_threshold's stats). Returns the
+    whole-read reports and the per-kernel one."""
     exact = memory_read(mk, mv, q, top_k=TOP_K, valid=valid, backend="exact")
     scale = exact.abs().mean().item()
     reps = []
@@ -364,8 +431,9 @@ def gate_read(mk, mv, q, valid):
     st_p = cmr.candidates_plain(aff, TOP_K)
     ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K, planes)
     ref_p = cmr.refine_plain(aff, st_k, TOP_K)
-    out_k = cmr.readout_cuda(rq, mk, mv, mask, st_k, planes)
-    out_p = cmr.readout_plain(aff, mv, st_k)
+    st = shared_threshold(st_k, st_p)
+    out_k = cmr.readout_cuda(rq, mk, mv, mask, st, planes)
+    out_p = cmr.readout_plain(aff, mv, st)
     errs = {"candidates": (st_k - st_p).abs().max().item(),
             "refine": (ref_k - ref_p).abs().max().item(),
             "readout": (out_k - out_p).abs().max().item()}
@@ -400,27 +468,35 @@ def worst_errs(reps):
     return worst
 
 
+def gate_session_shapes(mk_all, mv_all, q, banks):
+    """gate_read at the session's read shapes: K = 3, M = half and all of
+    the banks' slots (21060 and 42120), the last TAIL slots invalid, fp32
+    and bf16. Logs every report with the banks' origin; returns each
+    kernel's worst error."""
+    m_all = mk_all.shape[1]
+    n16 = (-(-RH // 16)) * (-(-RW // 16))   # 30 * 54 = 1620 at 480p
+    check(tuple(q.shape) == (n16, 128), f"query shape {tuple(q.shape)}")
+    log(f"gate banks ({banks}): M = {m_all // 2} and {m_all}, N = {q.shape[0]}")
+    kernel_reps = []
+    for m in (m_all // 2, m_all):
+        valid = torch.arange(m, device=q.device) < m - TAIL
+        for dtype in (F32, BF16):
+            reps, kernel_rep = gate_read(mk_all[:, :m].to(dtype).contiguous(),
+                                         mv_all[:, :m].to(dtype).contiguous(),
+                                         q, valid)
+            for rep in reps + [kernel_rep]:
+                log(json.dumps(dict(rep, banks=banks)))
+            kernel_reps.append(kernel_rep)
+    return worst_errs(kernel_reps)
+
+
 def phase_gate(dev):
     """The gate at the session's read shapes (K = 3, M = 21060 and 42120,
     the last TAIL slots invalid), fp32 and bf16, and the timings of
     phase_timing. Returns each kernel's worst error, the timings and the
     gate banks, which the DAVIS gate reuses."""
     mk_all, mv_all, q = gate_banks(dev)
-    m_all = mk_all.shape[1]
-    n16 = (-(-RH // 16)) * (-(-RW // 16))   # 30 * 54 = 1620 at 480p
-    check(tuple(q.shape) == (n16, 128), f"query shape {tuple(q.shape)}")
-    log(f"gate banks: M = {m_all // 2} and {m_all}, N = {q.shape[0]}")
-    kernel_reps = []
-    for m in (m_all // 2, m_all):
-        valid = torch.arange(m, device=dev) < m - TAIL
-        for dtype in (F32, BF16):
-            reps, kernel_rep = gate_read(mk_all[:, :m].to(dtype).contiguous(),
-                                         mv_all[:, :m].to(dtype).contiguous(),
-                                         q, valid)
-            for rep in reps + [kernel_rep]:
-                log(json.dumps(rep))
-            kernel_reps.append(kernel_rep)
-    errs = worst_errs(kernel_reps)
+    errs = gate_session_shapes(mk_all, mv_all, q, "random-init")
     # iid-gaussian ties: reported, not gated (as in the JAX kernel check).
     rng = np.random.RandomState(0)
     gk, gv, gq = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
@@ -1797,6 +1873,294 @@ def phase_train(dev, tmp, root, fd_root, pth):
                     "peak_gib": rep["peak_gib"]}))
 
 
+@contextlib.contextmanager
+def step_clock(cls, rec):
+    """Record every step of trainer class `cls` within the block: its
+    host ms, the wait for its batch since the previous step ended (the
+    batch workers' lag behind the loop), CUDA-event ms from its start to
+    its end (upload, forward, backward, optimizer, the read-back), and its
+    loss and IoU."""
+    orig_step = cls.step
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    last = []
+
+    def step(self, seed, batch=None):
+        t0 = time.perf_counter()
+        if last:
+            rec["wait_ms"].append((t0 - last[-1]) * 1e3)
+        start.record()
+        loss, iou = orig_step(self, seed, batch)
+        end.record()
+        end.synchronize()
+        last.append(time.perf_counter())
+        rec["step_ms"].append((last[-1] - t0) * 1e3)
+        rec["device_ms"].append(start.elapsed_time(end))
+        rec["loss"].append(loss)
+        rec["iou"].append(iou)
+        return loss, iou
+
+    own = "step" in vars(cls)
+    cls.step = step
+    try:
+        yield
+    finally:
+        if own:
+            cls.step = orig_step
+        else:
+            del cls.step
+
+
+def new_record():
+    return {k: [] for k in ("wait_ms", "step_ms", "device_ms", "loss", "iou")}
+
+
+def curve_summary(rec, dev):
+    """Median step, device and wait ms, peak GiB, and the mean loss and
+    IoU of the first and the last PRE_WINDOW steps."""
+    w = min(PRE_WINDOW, len(rec["loss"]))
+    return {"steps": len(rec["loss"]),
+            "median_step_ms": float(np.median(rec["step_ms"])),
+            "median_device_ms": float(np.median(rec["device_ms"])),
+            "median_wait_ms": float(np.median(rec["wait_ms"] or [0.0])),
+            "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+            "first_loss": float(np.mean(rec["loss"][:w])),
+            "last_loss": float(np.mean(rec["loss"][-w:])),
+            "first_iou": float(np.mean(rec["iou"][:w])),
+            "last_iou": float(np.mean(rec["iou"][-w:]))}
+
+
+def pretrain_card_vs_cpu(dev):
+    """The same random-init weights in a PropPretrainer on the card and on
+    the CPU at 48x48, 3 steps of chain_mix (1, 2): losses within 1e-4
+    relative, every trained tensor within 3 * lr (the most Adam moves a
+    tensor whose gradient is rounding noise)."""
+    net = init_params(PropagationNetwork(top_k=TOP_K, read_backend="exact"),
+                      torch.Generator().manual_seed(4))
+    sd = {k: v.clone() for k, v in net.state_dict().items()}
+    trainers = {d: PropPretrainer(params=sd, hw=(48, 48), lr=PRE_LR,
+                                  chain_mix=(1, 2), device=d) for d in (dev, "cpu")}
+    losses = {d: [tr.step(s)[0] for s in range(3)] for d, tr in trainers.items()}
+    rel = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(losses[dev], losses["cpu"]))
+    cpu_sd = trainers["cpu"].state_dict()
+    w_err = max((v.cpu() - cpu_sd[k]).abs().max().item()
+                for k, v in trainers[dev].state_dict().items())
+    rep = {"losses_card": losses[dev], "losses_cpu": losses["cpu"],
+           "loss_max_rel": rel, "weight_max_abs": w_err, "lr": PRE_LR}
+    check(rel <= 1e-4 and w_err <= 3 * PRE_LR, f"pretrain card vs CPU {rep}")
+    return rep
+
+
+def pretrain_stage(kind, argv, dev):
+    """python -m mivos_tpu_torch.pretrain_synthetic --net `kind` in
+    process under step_clock: every loss finite, the last PRE_WINDOW
+    steps' mean loss below the first's."""
+    rec = new_record()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with step_clock(pretrain_synthetic.TRAINERS[kind], rec):
+        pretrain_synthetic.main(["--net", kind, "--device", str(dev),
+                                 "--log-every", "100", *argv])
+    rep = dict(curve_summary(rec, dev), wall_s=time.perf_counter() - t0)
+    check(all(np.isfinite(rec["loss"])), f"{kind}: non-finite losses")
+    check(rep["last_loss"] < rep["first_loss"], f"{kind}: no descent {rep}")
+    return rep
+
+
+def pretrain_chain3(out, dev):
+    """Chain-3 steps at CHAIN3_HW from the prop stage's weights, a fresh
+    Adam (as --resume), as many as CHAIN3_BOX_S allows, batches built
+    ahead as the CLI builds them; saved and
+    logged through the CLI's writer. Returns the curve summary and one
+    step under the profiler for each of the two prop shapes."""
+    ckpt = pretrain_synthetic.checkpoint_path(out, "prop")
+    sd = read_state_dict(ckpt)
+    profiles = {}
+    for hw, chain in (((PRE_HW, PRE_HW), 1), (CHAIN3_HW, 3)):
+        probe = PropPretrainer(params=sd, hw=hw, lr=CHAIN3_LR, chain_steps=chain,
+                               device=dev)
+        batch = probe.host_batch(CHAIN3_SEED)
+        profiles[f"{hw[0]}x{hw[1]}_chain{chain}"] = device_profile(
+            lambda: probe.step(CHAIN3_SEED, batch))
+        del probe
+    tr = PropPretrainer(params=sd, hw=CHAIN3_HW, lr=CHAIN3_LR, chain_steps=3,
+                        device=dev)
+    rec = new_record()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with step_clock(PropPretrainer, rec):
+        feed = batches(tr, range(CHAIN3_SEED, CHAIN3_SEED + 10**5))
+        for seed, batch in feed:
+            tr.step(seed, batch)
+            if time.perf_counter() - t0 >= CHAIN3_BOX_S:
+                break
+        del feed
+    rep = dict(curve_summary(rec, dev), wall_s=time.perf_counter() - t0,
+               profiles=profiles)
+    check(all(np.isfinite(rec["loss"])), "chain 3: non-finite losses")
+    save_params(ckpt, tr.net)
+    log_path = os.path.join(out, "pretrain_log.json")
+    with open(log_path) as f:
+        old = json.load(f)
+    pretrain_synthetic.merge_log(
+        old, "prop", {"loss": rec["loss"], "iou": rec["iou"],
+                      "step": list(range(len(rec["loss"])))},
+        {"steps": len(rec["loss"]), "hw": list(CHAIN3_HW), "lr": CHAIN3_LR,
+         "seed": CHAIN3_SEED, "resume": True, "chain": [3]}, resume=True)
+    with open(log_path, "w") as f:
+        json.dump(old, f)
+    return rep
+
+
+def held_out_session(dev, sd, hw):
+    """One interaction on frame 0 of a held-out synthetic video
+    (HELD_OUT_SEED, outside every training seed) of `hw` frames through
+    InferenceCore, bf16, on the kernels: the mean IoU of frames 1..
+    against the ground truth, the share of object probabilities with
+    |p - 0.5| < 0.07, and the launch counts of its reads."""
+    prop = PropagationNetwork(top_k=TOP_K, dtype=BF16)
+    prop.load_state_dict(sd)
+    fuse = init_params(FusionNet(dtype=BF16), torch.Generator().manual_seed(0))
+    images, gt = synthetic_sequence(HELD_OUT_SEED, HELD_T, *hw, HELD_K)
+    fg = labels_to_onehot(gt[0], HELD_K)
+    mask = np.concatenate([1.0 - fg.sum(0, keepdims=True), fg])
+    core = InferenceCore(prop, fuse, im_normalize(images), HELD_K,
+                         mem=MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ), device=dev)
+    reads = expected_reads(core, 0)
+    cmr.reset_launch_counts()
+    labels = core.interact(mask, 0)
+    torch.cuda.synchronize()
+    counts = cmr.launch_counts()
+    check(counts == {name: n * reads for name, n in cmr.launches_per_read(BF16, 0).items()},
+          f"held-out session launches {counts} for {reads} reads")
+    session_invariants(core, labels)
+    ious = []
+    for t in range(1, HELD_T):
+        for k in range(1, HELD_K + 1):
+            a, b = labels[t] == k, gt[t] == k
+            ious.append((a & b).sum() / max((a | b).sum(), 1))
+    lw, uw, lh, uh = core.pad
+    probs = torch.stack([core.get_prob(t)[1:, 0, lh:core.nh - uh, lw:core.nw - uw]
+                         for t in range(1, HELD_T)])
+    near = ((probs - 0.5).abs() < 0.07).float().mean().item()
+    return {"mean_iou": float(np.mean(ious)), "near_tie_share": near,
+            "reads": reads}, counts
+
+
+def trained_gate_banks(dev, sd):
+    """The JAX gate's encoder banks (scripts/pallas_kernel_check.py:84-116)
+    from the pretrained fp32 net: synthetic_sequence(7, GATE_FRAMES + 1,
+    480, 854, 3), im_normalize, labels_to_onehot, memorized frame by
+    frame; the query key of the last frame."""
+    net = PropagationNetwork(top_k=TOP_K)
+    net.load_state_dict(sd)
+    net = net.to(dev).eval()
+    images, labels = synthetic_sequence(7, GATE_FRAMES + 1, RH, RW, K)
+    images = im_normalize(images)
+    mks, mvs = [], []
+    with torch.no_grad():
+        for t in range(GATE_FRAMES):
+            frame = pad_divide_by(torch.from_numpy(images[t]).to(dev))[0]
+            masks = pad_divide_by(torch.from_numpy(labels_to_onehot(labels[t], K)).to(dev))[0]
+            mk, mv = net.memorize(frame, masks)
+            mks.append(mk)
+            mvs.append(mv)
+        qframe = pad_divide_by(torch.from_numpy(images[GATE_FRAMES]).to(dev))[0]
+        k16 = net.get_query_values(qframe)[3]
+    return torch.cat(mks, 1), torch.cat(mvs, 1), k16[0].flatten(1).t().contiguous()
+
+
+def pretrain_fusion(dev, tmp, prop_pth):
+    """python -m mivos_tpu_torch.train_fusion_synthetic in process from the
+    pretrained prop weights: FS_VIDEOS videos, FS_ITERS iterations at
+    batch TRAIN_BATCH. Its generate_fusion reads launch the fp32 kernels;
+    returns their counts (zeroed just before) and the phase's report."""
+    root = os.path.join(tmp, "fusion_syn")
+    argv = ["--root", root, "--weights", prop_pth,
+            "--out", os.path.join(tmp, "weights", "fusion_synthetic.pth"),
+            "--videos", str(FS_VIDEOS), "--frames", str(FS_FRAMES),
+            "--hw", str(FS_HW), "--separation", str(FS_SEPARATION),
+            "--iterations", str(FS_ITERS), "--batch", str(TRAIN_BATCH),
+            "--report-every", str(FS_REPORT), "--num-workers", "8",
+            "--device", str(dev)]
+    split = {}
+    cmr.reset_launch_counts()   # the generate_fusion run's launches start here
+    with timed_calls(FusionGenerator, "interact_mask", split), \
+            timed_calls(generate_fusion, "_save_png", split):
+        summary = train_fusion_synthetic.main(argv)
+    counts = cmr.launch_counts()
+    dataset = DAVISTestDataset(os.path.join(root, "trainval"), imset="2017/train.txt")
+    refs = [f for i in range(len(dataset)) for f in range(0, FS_FRAMES, FS_SEPARATION)
+            if usable_objects(dataset[i]["gt"], f)]
+    reads = len(refs) * (FS_FRAMES - 1)
+    check(counts == {name: n * reads for name, n in cmr.launches_per_read(F32, 0).items()},
+          f"train_fusion_synthetic's generate_fusion launches {counts} for {reads} reads")
+    pngs = sum(len(fs) for _, _, fs in os.walk(os.path.join(root, "fusion")))
+    rep = {"videos": FS_VIDEOS, "frames": FS_FRAMES, "hw": FS_HW,
+           "separation": FS_SEPARATION, "reads": reads, "pngs": pngs,
+           "generate_s": summary["generate_s"],
+           "interact_mask_s": split["interact_mask"], "png_write_s": split["_save_png"],
+           "png_share": split["_save_png"] / summary["generate_s"],
+           "ms_per_png": split["_save_png"] / pngs * 1e3,
+           "train_s": summary["train_s"], "iterations": summary["it"],
+           "losses": summary["losses"], "p": summary["p"]}
+    return counts, rep
+
+
+def phase_pretrain(dev, tmp):
+    """Synthetic pretraining (module docstring, phase 12). Returns the
+    launch counts of its two kernel paths and each kernel's worst error
+    in the gate on trained-like banks."""
+    t_phase = time.perf_counter()
+    rep = {"phase": "pretrain"}
+    with cudnn_mode(False, deterministic=True):
+        rep["card_vs_cpu"] = pretrain_card_vs_cpu(dev)
+    log(json.dumps({"pretrain_card_vs_cpu": rep["card_vs_cpu"]}))
+    out = os.path.join(tmp, "weights")
+    common = ["--out", out, "--lr", str(PRE_LR), "--hw", str(PRE_HW),
+              "--seed", str(PRE_SEED)]
+    with cudnn_mode(benchmark=True):   # fixed shapes a stage
+        for kind in ("prop", "s2m", "fbrs"):
+            rep[kind] = pretrain_stage(kind, common + ["--steps", str(PRE_STEPS[kind])], dev)
+            log(json.dumps({"pretrain": kind, **rep[kind]}))
+            if kind == "prop":
+                rep["prop_chain3"] = pretrain_chain3(out, dev)
+                log(json.dumps({"pretrain": "prop_chain3", "hw": CHAIN3_HW,
+                                **rep["prop_chain3"]}))
+    prop_pth = pretrain_synthetic.checkpoint_path(out, "prop")
+    prop_sd = read_state_dict(prop_pth)
+    load_reference_pth(S2MNetwork(), pretrain_synthetic.checkpoint_path(out, "s2m"))
+    build_fbrs_from_state_dict(read_state_dict(pretrain_synthetic.checkpoint_path(out, "fbrs")))
+    with open(os.path.join(out, "pretrain_log.json")) as f:
+        check(sorted(json.load(f)) == ["fbrs", "prop", "s2m"], "pretrain_log.json nets")
+
+    random_sd = init_params(PropagationNetwork(), torch.Generator().manual_seed(0)).state_dict()
+    with cudnn_mode(False, deterministic=True):
+        # The main one at 480x854 (its launches are this path's), then at
+        # the first stage's training size.
+        for hw in ((RH, RW), (PRE_HW, PRE_HW)):
+            key = "held_out" if hw == (RH, RW) else f"held_out_{hw[0]}"
+            rep[key], counts = held_out_session(dev, prop_sd, hw)
+            if hw == (RH, RW):
+                session_counts = counts
+            rep[key + "_random_init"], _ = held_out_session(dev, random_sd, hw)
+            log(json.dumps({"held_out_session": [HELD_T, *hw, HELD_K],
+                            "pretrained": rep[key],
+                            "random_init": rep[key + "_random_init"]}))
+    torch.cuda.empty_cache()
+    errs = gate_session_shapes(*trained_gate_banks(dev, prop_sd), "pretrained")
+    log(json.dumps({"pretrained_gate_per_kernel_max_abs_err": errs}))
+    torch.cuda.empty_cache()
+    with cudnn_mode(benchmark=True):
+        fusion_counts, rep["fusion"] = pretrain_fusion(dev, tmp, prop_pth)
+    log(json.dumps({"pretrain_fusion": rep["fusion"]}))
+    rep["wall_s"] = time.perf_counter() - t_phase
+    log(json.dumps({"phase": "pretrain", "wall_s": rep["wall_s"],
+                    "stages_s": {k: rep[k]["wall_s"] for k in
+                                 ("prop", "prop_chain3", "s2m", "fbrs")}}))
+    return {"session": session_counts, "fusion_gen": fusion_counts}, errs
+
+
 def main():
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1849,12 +2213,18 @@ def main():
             t0 = time.perf_counter()
             phase_train(dev, tmp, *data)
             log(f"train phase: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            pretrain_launches, pretrain_errs = phase_pretrain(dev, tmp)
+            log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
         paths = ({"session": launches_bf16, "davis": davis_launches,
                   "serve": serve_launches, "gui": gui_launches,
-                  "fusion_gen": fusion_gen_launches} if dtype == BF16
-                 else {"session_fp32": launches_f32})
+                  "fusion_gen": fusion_gen_launches,
+                  "pretrain_session": pretrain_launches["session"]} if dtype == BF16
+                 else {"session_fp32": launches_f32,
+                       "pretrain_fusion_gen": pretrain_launches["fusion_gen"]})
         by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         session = paths["session" if dtype == BF16 else "session_fp32"]
         for c in counters:   # the session paths run every kernel (davis: no refine)
@@ -1865,7 +2235,8 @@ def main():
             "replaces": REPLACES[phase], "bank": str(dtype)[6:],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(e[str(dtype)[6:]][phase]
-                               for e in (errs, davis_errs, fusion_gen_errs)),
+                               for e in (errs, davis_errs, fusion_gen_errs,
+                                         pretrain_errs)),
             "ms": at["kernel_ms"][phase], "plain_ms": at["plain_ms"][phase],
             "bound_ms": at["bound_ms"][phase], "bound_by": at["bound_by"][phase],
             "library_ms": None,   # no PyTorch call computes a thresholded top-k read

@@ -1,5 +1,6 @@
 """Random initialization following flax's defaults (counterpart of the
-`init()` the JAX package gets from flax).
+`init()` the JAX package gets from flax), and the frozen-statistics
+calibration from-scratch training uses (`calibrate_frozen_bn`).
 
 Convs: lecun-normal, a normal truncated at two standard deviations and
 rescaled to variance 1/fan_in; conv biases zero; FrozenBatchNorm scale
@@ -10,6 +11,7 @@ with the statistics of the JAX gate's random-init fallback
 from __future__ import annotations
 
 import math
+from typing import Callable, Dict
 
 import torch
 from torch import nn
@@ -39,3 +41,48 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
     return module
+
+
+@torch.no_grad()
+def calibrate_frozen_bn(net: nn.Module, forward: Callable[[], object],
+                        iters: int = 3) -> nn.Module:
+    """Write measured input statistics into every FrozenBatchNorm's
+    running_mean and running_var, in place (counterpart of
+    mivos_tpu/models/initializer.py:120-176).
+
+    A fresh init leaves the frozen statistics at (0, 1), so deep residual
+    towers stack variance unnormalized and the first optimizer step can
+    saturate the head. Each iteration runs `forward()` (the net on a
+    representative batch) with a pre-hook on every FrozenBatchNorm that
+    keeps its last call's input, then writes that input's per-channel
+    fp32 mean and variance over N, H and W: non-finite means become 0, a
+    NaN variance 1, an infinite one 1e30, and the variance is clipped to
+    [1e-4, 1e30] so that a constant input cannot re-amplify by
+    1/sqrt(eps). Iterated because calibrating upstream shifts downstream
+    statistics (depth-35 towers need about 10). Every other tensor and
+    buffer is left alone, and the hooks are removed even when `forward`
+    raises."""
+    inputs: Dict[nn.Module, torch.Tensor] = {}
+
+    def keep_input(module, args):
+        inputs[module] = args[0]
+
+    handles = [m.register_forward_pre_hook(keep_input)
+               for m in net.modules() if isinstance(m, FrozenBatchNorm)]
+    try:
+        for _ in range(iters):
+            inputs.clear()
+            forward()
+            for m, x in inputs.items():
+                x32 = x.to(torch.float32)
+                dims = [d for d in range(x32.ndim) if d != 1]
+                mean = x32.mean(dim=dims)
+                var = x32.var(dim=dims, unbiased=False)
+                m.running_mean.copy_(torch.nan_to_num(
+                    mean, nan=0.0, posinf=0.0, neginf=0.0))
+                m.running_var.copy_(torch.nan_to_num(
+                    var, nan=1.0, posinf=1e30).clamp(1e-4, 1e30))
+    finally:
+        for h in handles:
+            h.remove()
+    return net
