@@ -76,7 +76,27 @@ Phases (any failure exits non-zero before the final line):
              the same clicks and mask (p > 0.49) IoU >= 0.99. Then where
              a click's time goes: GFLOP from shapes, CUDA-event ms of the
              head input and of one L-BFGS evaluation, profiler traces.
-  8. serve   the HTTP session server, cuDNN autotune off with
+  8. fbrs_modes  the rest of the f-BRS click path at 480x854, fp32,
+             deterministic cuDNN plans (the chaotic input-space modes
+             then choose the same clicks in every drive): the fbrs
+             phase's model under f-BRS-A, f-BRS-C, RGB-BRS and
+             DistMap-BRS (get_predictor, ZoomIn 480, expansion 1.4,
+             L-BFGS maxiter 20), each a first-use and a repeat 5-click
+             drive of the NoC user with per-click ms, iterations and
+             evaluations, every map finite in [0, 1], every click after
+             the first optimizing, the same clicks in both drives; the
+             oracle (set_oracle_gt on the synthetic ground truth, f-BRS-B,
+             3 clicks): its objective at the returned x no higher than at
+             the x it started from; TiledPredictor, 4 crops of 320x480 and
+             their flips in one batch of 8; a random-init
+             HRNet-W32-OCR128 with non-trivial frozen-BN statistics
+             (fbrs_hrnet_net): head input ms at the frame and peak
+             memory, NoBRS, f-BRS-B (insertion A) and f-BRS-C (C) drives.
+             No memory-read kernel launches in the phase. Then each new
+             mode and HRNet's B and C card against CPU at 240x320, ZoomIn
+             240, 3 clicks: the first map within 1e-3, the same clicks,
+             mask IoU >= 0.99.
+  9. serve   the HTTP session server, cuDNN autotune off with
              deterministic plans (as davis): SessionManager over the
              full-width bf16 nets on this card (max_sessions 2),
              warm(60, 480, 854, 3, 2 rounds), make_server on a free
@@ -93,7 +113,7 @@ Phases (any failure exits non-zero before the final line):
              drained and empties the manager. Prints warm s, create ms,
              interact ms per round, first chunk ms, p50/p95 and the peak
              memory with two live sessions.
-  9. gui     GuiSession with the full-width bf16 nets, a bf16 S2M and the
+ 10. gui     GuiSession with the full-width bf16 nets, a bf16 S2M and the
              fbrs phase's f-BRS model (fp32), on 60 uint8 frames 480x854,
              K = 2, deterministic plans: frame 0 scribbles for both
              objects (S2M), two free strokes and an undo, propagation
@@ -106,7 +126,7 @@ Phases (any failure exits non-zero before the final line):
              handed the processor, replayed through a direct core, give
              equal labels. Prints S2M and click ms and each
              propagation's seconds.
- 10. fusion_gen  python -m mivos_tpu_torch.generate_fusion's main() in
+ 11. fusion_gen  python -m mivos_tpu_torch.generate_fusion's main() in
              process on a DAVIS-layout tree of three 40-frame 480x854
              JPEG videos with palette PNG annotations, K = 2, 3 and 0
              (no usable object), --separation 10, bf16, the random-init
@@ -121,9 +141,9 @@ Phases (any failure exits non-zero before the final line):
              every (K, N, M) the run read with, fp32 and bf16, as after
              the davis phase. Prints seconds and propagated frames/s per
              video.
- 11. train   FusionDataset over phase 10's output, Loader (batch 12,
+ 12. train   FusionDataset over phase 11's output, Loader (batch 12,
              8 workers, pinned memory) and FusionTrainer on the card:
-             fp32, 384x384 crops, the reader's weights from phase 10's
+             fp32, 384x384 crops, the reader's weights from phase 11's
              .pth (attention_read_state_dict), FusionNet random-init;
              1 warm and 20 measured steps (iterations 20, an lr drop at
              10, cuDNN autotune on): finite losses, the lr dropping at
@@ -139,9 +159,9 @@ Phases (any failure exits non-zero before the final line):
              batches past the 16 its workers queue at the start; then
              `python -m mivos_tpu_torch.train
              --iterations 3` in a subprocess (exit 0, its checkpoint
-             written). Phase 10 also splits its time into propagation
+             written). Phase 11 also splits its time into propagation
              and PNG writes.
- 12. pretrain  synthetic pretraining (train/pretrain.py) with TF32 off:
+ 13. pretrain  synthetic pretraining (train/pretrain.py) with TF32 off:
              (1) a PropPretrainer on the card and one on the CPU from the
              same random-init weights, 48x48, 3 steps of chain_mix
              (1, 2), deterministic plans: losses within 1e-4 relative,
@@ -217,22 +237,27 @@ from mivos_tpu_torch.eval.davis_metrics import SequenceJF
 from mivos_tpu_torch.eval.robot import InteractiveScribblesRobot
 from mivos_tpu_torch.generation.synthetic import labels_to_onehot, synthetic_sequence
 from mivos_tpu_torch.interactive.clicker import Clicker
+from mivos_tpu_torch.interactive.crops import TiledPredictor
 from mivos_tpu_torch.interactive.fbrs_controller import (FBRSController,
                                                          InteractiveController)
-from mivos_tpu_torch.interactive.fbrs_predictor import fbrs_objective
+from mivos_tpu_torch.interactive.fbrs_predictor import (_scale_bias_reg, _scaled_predict,
+                                                        fbrs_objective, get_predictor)
 from mivos_tpu_torch.interactive.gui_session import GuiSession
 from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.interactive.scribbles import is_empty, scribbles2mask
 from mivos_tpu_torch.models import build_fbrs_from_state_dict
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
 from mivos_tpu_torch.models.fusion import FusionNet
+from mivos_tpu_torch.models.hrnet import FBRSHRNetModel
 from mivos_tpu_torch.models.initializer import init_params
+from mivos_tpu_torch.models.layers import FrozenBatchNorm
 from mivos_tpu_torch.models.propagation import PropagationNetwork
 from mivos_tpu_torch.models.s2m import S2MNetwork
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
 from mivos_tpu_torch.ops.cuda.build import load_library
 from mivos_tpu_torch.ops.memory_read import memory_read
 from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_gracefully
+from mivos_tpu_torch.train.fbrs_losses import sigmoid_bce_from_probs
 from mivos_tpu_torch.train.pretrain import PropPretrainer, batches
 from mivos_tpu_torch.train.trainer import FusionTrainer
 from mivos_tpu_torch.utils.tensor import (compute_pad, labels_to_probs,
@@ -246,6 +271,9 @@ DAVIS_T, DAVIS_ROUNDS, DAVIS_SEQS = 50, 8, ((101, 2), (102, 3))  # (seed, K)
 PROPAGATE_ON = (2, 5, 7)     # reference davis_processor.py:34
 FBRS_CLICKS, FBRS_CHECK = 5, (240, 320, 3)   # check: h, w, clicks
 FBRS_LOGIT_GAIN = 10.0       # as tests/test_torch_fbrs.py
+FBRS_NEW_MODES = ("f-BRS-A", "f-BRS-C", "RGB-BRS", "DistMap-BRS")
+HRNET_MODES = ("NoBRS", "f-BRS-B", "f-BRS-C")
+TILE_CROP = (320, 480)
 GEN_T, GEN_SEPARATION = 40, 10
 FG_VIDEOS = ((61, 2), (62, 3), (63, 0))   # (seed, K); K = 0: no usable object
 TRAIN_BATCH, TRAIN_STEPS = 12, 20
@@ -1248,6 +1276,266 @@ def phase_fbrs(dev):
                     "first_use_ms": rep["drives"]["first_use"]["ms"]}))
 
 
+def predictor_drive(pred, image, gt, n, dev):
+    """n clicks of the NoC user (Clicker over gt, the mask p > 0.49)
+    through a predictor (get_predictor's or TiledPredictor) on a fresh
+    image. Returns the clicks, each click's record and map."""
+    pred.set_input_image(image)
+    clicker = Clicker(gt)
+    mask = np.zeros(gt.shape, bool)
+    recs, maps = [], []
+    for _ in range(n):
+        clicker.make_next_click(mask)
+        c = clicker.clicks_list[-1]
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prob = pred.get_prediction(clicker)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        prob = prob.cpu().numpy()
+        info = dict(getattr(pred, "last_info", {}))
+        recs.append({"click": [c.coords[0], c.coords[1], c.is_positive], "ms": ms,
+                     "crop_hw": list(info.get("crop_hw", prob.shape)),
+                     "iters": info.get("iters", 0), "evals": info.get("evals", 0),
+                     "host_reads": info.get("host_reads", 0),
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                  if dev.type == "cuda" else None)})
+        maps.append(prob)
+        mask = prob > 0.49
+    return [(c.is_positive, c.coords) for c in clicker.clicks_list], recs, maps
+
+
+def check_maps(maps, hw, what):
+    for i, p in enumerate(maps):
+        check(p.shape == tuple(hw) and bool(np.isfinite(p).all())
+              and p.min() >= 0.0 and p.max() <= 1.0,
+              f"{what} click {i}: map {p.shape} outside [0, 1] or not finite")
+
+
+def check_optimized(recs, what):
+    """As in JAX: the first click runs the network alone, every later
+    click optimizes."""
+    check(recs[0]["iters"] == 0 and all(r["iters"] > 0 for r in recs[1:]),
+          f"{what}: the clicks after the first must optimize "
+          f"{[r['iters'] for r in recs]}")
+
+
+def fbrs_hrnet_net(dev_image):
+    """Random-init FBRSHRNetModel(32, 128) (the f-BRS release's
+    hrnet32_ocr128) from a seed, on the host, with non-trivial frozen-BN
+    statistics (weight and running_var uniform in [0.5, 1.5], bias and
+    running_mean normal with deviation 0.1, as the CPU tests' random
+    trees), its cls_head rescaled so that its logits on `dev_image` (the
+    frame, with one centre click) have median 0 and deviation 2: a random
+    OCR head otherwise saturates every pixel."""
+    gen = torch.Generator().manual_seed(12)
+    net = init_params(FBRSHRNetModel(32, 128, small=False, norm_radius=260.0), gen)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+        image = torch.from_numpy(dev_image).permute(2, 0, 1)[None]
+        h, w = dev_image.shape[:2]
+        z = net.eval()(image, torch.tensor([[[h / 2, w / 2], [-1.0, -1.0]]]))
+        a = 2.0 / float(z.std())
+        head = net.feature_extractor.cls_head
+        head.weight.mul_(a)
+        head.bias.mul_(a).sub_(a * float(z.median()))
+    return net
+
+
+def oracle_objective(pred, x):
+    """The oracle's objective (BCE to the ground truth cut to the crop, and
+    the scale/bias regularizer) at x for the predictor's cached head
+    input."""
+    hw = tuple(pred.last_info["crop_hw"])
+    predict, c = _scaled_predict(pred.net, pred.insertion_mode, pred.input_data, hw)
+    gt = pred._oracle_gt_for_crop(hw)
+    gt2 = torch.cat([gt, torch.flip(gt, dims=[-1])])
+    with torch.no_grad():
+        loss = sigmoid_bce_from_probs(torch.sigmoid(predict(x)), gt2).mean()
+        return float(loss), float(loss + _scale_bias_reg(x, c))
+
+
+def mask_iou(a, b):
+    """IoU of two boolean masks; two empty masks agree (1)."""
+    union = int((a | b).sum())
+    return float((a & b).sum() / union) if union else 1.0
+
+
+def card_vs_cpu(make_pred, net, image, gt, n, dev):
+    """The same weights and the NoC user's clicks through make_pred(net,
+    device) on the card and on a CPU copy: the first map's max |dp|, the
+    clicks, each map's mask (p > 0.49) IoU."""
+    out = []
+    for d, m in ((dev, net), (torch.device("cpu"), copy.deepcopy(net).cpu())):
+        out.append(predictor_drive(make_pred(m, d), image, gt, n, d))
+    (gc, grec, gp), (cc, crec, cp) = out
+    rep = {"clicks": gc, "cpu_clicks": cc,
+           "max_abs_dp": [float(np.abs(a - b).max()) for a, b in zip(gp, cp)],
+           "mask_iou": [mask_iou(a > 0.49, b > 0.49) for a, b in zip(gp, cp)],
+           "iters_card": [r["iters"] for r in grec],
+           "iters_cpu": [r["iters"] for r in crec],
+           "cpu_s": sum(r["ms"] for r in crec) / 1e3}
+    return rep
+
+
+def phase_fbrs_modes(dev):
+    """The rest of the f-BRS click path at full width (module docstring,
+    phase 8). TF32 off, as main() sets; main() runs it under
+    deterministic cuDNN plans."""
+    frames, labels = synthetic_video(31, 1, RH, RW, 1)
+    image, gt = frames[0], labels[0].astype(np.int32)
+    zoom = {"target_size": 480, "expansion_ratio": 1.4}
+    params = {"maxiter": 20}
+    rep = {"phase": "fbrs_modes", "hw": [RH, RW], "deeplab": {}, "hrnet": {}}
+    cmr.reset_launch_counts()   # no launch in the whole phase
+    t_phase = time.perf_counter()
+
+    # DeepLab R50 ch128 (resnet50_dh128_lvis) under the four new modes.
+    net = fbrs_net()
+    for mode in FBRS_NEW_MODES:
+        runs = {}
+        for name in ("first_use", "repeat"):
+            pred = get_predictor(net, mode, zoom_in_params=zoom,
+                                 predictor_params=params, device=dev)
+            clicks, recs, maps = predictor_drive(pred, image, gt, FBRS_CLICKS, dev)
+            check_maps(maps, (RH, RW), f"{mode} {name}")
+            check_optimized(recs, f"{mode} {name}")
+            runs[name] = (clicks, recs)
+        check(runs["first_use"][0] == runs["repeat"][0],
+              f"{mode}: the two drives chose other clicks")
+        clicks, recs = runs["repeat"]
+        for r in recs:
+            log(json.dumps({"fbrs_mode_click": mode, "model": "resnet50 ch128", **r}))
+        rep["deeplab"][mode] = {
+            "first_click_ms": recs[0]["ms"],
+            "optimized_median_ms": float(np.median([r["ms"] for r in recs[1:]])),
+            "ms": [r["ms"] for r in recs],
+            "first_use_ms": [r["ms"] for r in runs["first_use"][1]],
+            "iters": [r["iters"] for r in recs], "evals": [r["evals"] for r in recs],
+            "crop_hw": recs[-1]["crop_hw"],
+            "peak_gib": max(r["peak_gib"] or 0.0 for r in recs),
+            "iou_vs_gt_random_init": [float(((m > 0.49) & (gt == 1)).sum()
+                                            / max(((m > 0.49) | (gt == 1)).sum(), 1))
+                                      for m in maps]}
+
+    # The oracle on the same net: at each optimized click the objective
+    # at the returned x is no higher than at the x it started from.
+    pred = get_predictor(net, "f-BRS-B", zoom_in_params=zoom, predictor_params=params,
+                         device=dev)
+    pred.set_input_image(image)
+    pred.set_oracle_gt(gt)
+    clicker, mask, oracle = Clicker(gt), np.zeros(gt.shape, bool), []
+    for i in range(3):
+        clicker.make_next_click(mask)
+        x0 = None if pred.opt_data is None else pred.opt_data.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prob = pred.get_prediction(clicker)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        prob = prob.cpu().numpy()
+        check_maps([prob], (RH, RW), "oracle")
+        iters = pred.last_info["iters"]
+        check((iters > 0) == (i > 0), f"oracle click {i}: {iters} iterations")
+        rec = {"click": i, "ms": ms, "iters": iters,
+               "iou_vs_gt": float(((prob > 0.49) & (gt == 1)).sum()
+                                  / max(((prob > 0.49) | (gt == 1)).sum(), 1))}
+        if iters:
+            at_x0 = oracle_objective(pred, x0)
+            at_x = oracle_objective(pred, pred.opt_data)
+            rec.update(loss_x0=at_x0[0], loss_x=at_x[0], objective_x0=at_x0[1],
+                       objective_x=at_x[1])
+            check(at_x[1] <= at_x0[1], f"oracle objective rose {rec}")
+        oracle.append(rec)
+        mask = prob > 0.49
+    rep["oracle"] = oracle
+
+    # TiledPredictor: 4 crops of 320x480 and their flips, one batch of 8.
+    tiled = TiledPredictor(net, crop_size=TILE_CROP, device=dev)
+    _, recs, maps = predictor_drive(tiled, image, gt, 2, dev)
+    check_maps(maps, (RH, RW), "tiled")
+    check(len(tiled.crops.offsets) == 4, f"tiled crops {tiled.crops.offsets}")
+    rep["tiled"] = {"crop_hw": list(TILE_CROP), "crops": len(tiled.crops.offsets),
+                    "batch": 2 * len(tiled.crops.offsets),
+                    "click_ms": recs[-1]["ms"], "first_click_ms": recs[0]["ms"],
+                    "peak_gib": recs[-1]["peak_gib"]}
+    del tiled, pred
+
+    # HRNet-W32-OCR128.
+    hnet = fbrs_hrnet_net(image).to(dev)
+    with torch.no_grad():
+        img = torch.from_numpy(np.stack([image, image[:, ::-1]])).permute(0, 3, 1, 2).to(dev)
+        pts = torch.tensor([[[RH / 2, RW / 2], [-1.0, -1.0]]] * 2, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rep["hrnet"]["head_input_ms_frame"] = cuda_ms(lambda: hnet.head_input(img, pts))
+        rep["hrnet"]["head_input_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rep["hrnet"]["head_input_shape"] = list(hnet.head_input(img, pts).shape)
+    for mode in HRNET_MODES:
+        runs = {}
+        for name in ("first_use", "repeat"):
+            pred = get_predictor(hnet, mode, zoom_in_params=zoom,
+                                 predictor_params=params, device=dev)
+            clicks, recs, maps = predictor_drive(pred, image, gt, FBRS_CLICKS, dev)
+            check_maps(maps, (RH, RW), f"hrnet {mode} {name}")
+            if mode != "NoBRS":
+                check_optimized(recs, f"hrnet {mode} {name}")
+            runs[name] = (clicks, recs)
+        clicks, recs = runs["repeat"]
+        for r in recs:
+            log(json.dumps({"fbrs_mode_click": mode, "model": "hrnet32 ocr128", **r}))
+        rep["hrnet"][mode] = {
+            "insertion": pred.insertion_mode, "first_click_ms": recs[0]["ms"],
+            "optimized_median_ms": float(np.median([r["ms"] for r in recs[1:]])),
+            "ms": [r["ms"] for r in recs],
+            "first_use_ms": [r["ms"] for r in runs["first_use"][1]],
+            "iters": [r["iters"] for r in recs], "evals": [r["evals"] for r in recs],
+            "peak_gib": max(r["peak_gib"] or 0.0 for r in recs)}
+    counts = cmr.launch_counts()
+    check(sum(counts.values()) == 0, f"f-BRS modes launched memory-read kernels {counts}")
+    rep["memory_read_launches"] = sum(counts.values())
+    rep["drives_s"] = time.perf_counter() - t_phase
+
+    # Card against CPU at 240x320: the same weights and clicks.
+    h, w, n = FBRS_CHECK
+    frames, labels = synthetic_video(32, 1, h, w, 1)
+    small, sgt = frames[0], labels[0].astype(np.int32)
+    szoom = {"target_size": 240, "expansion_ratio": 1.4}
+    rep["card_vs_cpu"] = {"hw": [h, w]}
+    for family, model, modes in (("deeplab", net, FBRS_NEW_MODES),
+                                 ("hrnet", hnet, ("f-BRS-B", "f-BRS-C"))):
+        for mode in modes:
+            r = card_vs_cpu(lambda m, d: get_predictor(m, mode, zoom_in_params=szoom,
+                                                        predictor_params=params, device=d),
+                            model, small, sgt, n, dev)
+            rep["card_vs_cpu"][f"{family} {mode}"] = r
+            log(json.dumps({"fbrs_modes_card_vs_cpu": f"{family} {mode}", **r}))
+    for key, r in rep["card_vs_cpu"].items():
+        if key != "hw":
+            check(r["max_abs_dp"][0] <= 1e-3,
+                  f"{key} first click card vs CPU {r['max_abs_dp'][0]} > 1e-3")
+            check(r["clicks"] == r["cpu_clicks"], f"{key}: card and CPU chose other clicks")
+            check(min(r["mask_iou"][1:]) >= 0.99, f"{key} card vs CPU mask IoU {r['mask_iou']}")
+    counts = cmr.launch_counts()
+    check(sum(counts.values()) == 0, f"f-BRS modes launched memory-read kernels {counts}")
+    rep["phase_s"] = time.perf_counter() - t_phase
+    log(json.dumps(rep))
+    for family in ("deeplab", "hrnet"):
+        for mode, r in rep[family].items():
+            if isinstance(r, dict):
+                log(json.dumps({"metric": "fbrs_click_ms_480p", "model": family,
+                                "brs_mode": mode, "first_click_ms": r["first_click_ms"],
+                                "optimized_median_ms": r["optimized_median_ms"]}))
+
+
 def uint8_video(seed, t, h, w, k):
     """synthetic_video's frames as uint8 RGB (what a client uploads) and
     its label maps as uint8."""
@@ -1273,7 +1561,7 @@ def http(url, method="GET", arrays=None):
 
 
 def phase_serve(dev):
-    """The HTTP session server (module docstring, phase 8). Returns the
+    """The HTTP session server (module docstring, phase 9). Returns the
     launch counts of the served interactions."""
     t_phase = time.perf_counter()
     prop, fuse = make_nets(dev, BF16)
@@ -1421,7 +1709,7 @@ def phase_serve(dev):
 
 
 def phase_gui(dev):
-    """The headless GUI session (module docstring, phase 9). Returns the
+    """The headless GUI session (module docstring, phase 10). Returns the
     launch counts of its propagations."""
     t_phase = time.perf_counter()
     k = 2
@@ -1628,7 +1916,7 @@ def usable_objects(gt, frame):
 
 def phase_fusion_gen(dev, tmp):
     """python -m mivos_tpu_torch.generate_fusion in process (module
-    docstring, phase 10). Returns the launch counts of its run, the
+    docstring, phase 11). Returns the launch counts of its run, the
     tree's root, the fusion-data root and the weights file."""
     from PIL import Image
 
@@ -1728,8 +2016,8 @@ def phase_fusion_gen(dev, tmp):
 
 
 def phase_train(dev, tmp, root, fd_root, pth):
-    """FusionDataset, Loader and FusionTrainer on the card over phase 10's
-    output (module docstring, phase 11)."""
+    """FusionDataset, Loader and FusionTrainer on the card over phase 11's
+    output (module docstring, phase 12)."""
     t_phase = time.perf_counter()
     im_root = os.path.join(root, "trainval", "JPEGImages", "480p")
     gt_root = os.path.join(root, "trainval", "Annotations", "480p")
@@ -2108,7 +2396,7 @@ def pretrain_fusion(dev, tmp, prop_pth):
 
 
 def phase_pretrain(dev, tmp):
-    """Synthetic pretraining (module docstring, phase 12). Returns the
+    """Synthetic pretraining (module docstring, phase 13). Returns the
     launch counts of its two kernel paths and each kernel's worst error
     in the gate on trained-like banks."""
     t_phase = time.perf_counter()
@@ -2192,6 +2480,11 @@ def main():
     t0 = time.perf_counter()
     phase_fbrs(dev)
     log(f"fbrs phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with cudnn_mode(benchmark=False, deterministic=True):
+        phase_fbrs_modes(dev)
+    log(f"fbrs_modes phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     with cudnn_mode(benchmark=False, deterministic=True):   # as in davis
         t0 = time.perf_counter()

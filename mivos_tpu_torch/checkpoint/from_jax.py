@@ -12,7 +12,9 @@ flax): conv kernels HWIO -> OIHW (`_conv_kernel`, :39), FrozenBatchNorm
 `aspp.pool_conv`, `aspp.project`, `classifier0/1`) -> the reference
 Sequential indices (`convert_s2m`, :156-172). FBRSDeepLabModel has a
 table of its own (`fbrs_state_dict_from_flax`, the inverse of
-`convert_fbrs`, :177-225), so no FusionNet rule touches its names. The
+`convert_fbrs`, :177-225), so no FusionNet rule touches its names, and so
+has FBRSHRNetModel (`fbrs_hrnet_state_dict_from_flax`, the inverse of
+`convert_fbrs_hrnet`, :228-278). The
 port's module names are the reference's, so the result loads with
 strict=True and feeds straight back into convert.py. Operates on numpy
 arrays; no jax import.
@@ -82,6 +84,49 @@ _FBRS_RULES = _RESNET_RULES + (
     (r"^sep_head_out\.", "head.layers.2."),
 )
 
+# FBRSHRNetModel (the inverse of `convert_fbrs_hrnet`, :228-278, with its
+# fuse-layer `premap`: fuseI_J_convS/bnS -> fuse_layers.I.J.S.{0,1} for
+# j < i, fuseI_J_conv/bn -> fuse_layers.I.J.{0,1} for j > i).
+_FBRS_HRNET_RULES = (
+    (r"^rgb_conv_0\.", "rgb_conv.0."),
+    (r"^rgb_conv_bn\.", "rgb_conv.2."),
+    (r"^rgb_conv_1\.", "rgb_conv.3."),
+    (r"\.layer1_block(\d+)\.", r".layer1.\1."),
+    (r"\.downsample_conv\.", ".downsample.0."),
+    (r"\.downsample_bn\.", ".downsample.1."),
+    # transition1's first branch is one Sequential; each new branch is a
+    # Sequential holding one.
+    (r"\.transition1_0_conv\.", ".transition1.0.0."),
+    (r"\.transition1_0_bn\.", ".transition1.0.1."),
+    (r"\.transition(\d)_(\d)_conv\.", r".transition\1.\2.0.0."),
+    (r"\.transition(\d)_(\d)_bn\.", r".transition\1.\2.0.1."),
+    (r"\.stage(\d)_m(\d+)\.branch(\d+)_block(\d+)\.",
+     r".stage\1.\2.branches.\3.\4."),
+    (r"\.stage(\d)_m(\d+)\.fuse(\d+)_(\d+)_conv(\d+)\.",
+     r".stage\1.\2.fuse_layers.\3.\4.\5.0."),
+    (r"\.stage(\d)_m(\d+)\.fuse(\d+)_(\d+)_bn(\d+)\.",
+     r".stage\1.\2.fuse_layers.\3.\4.\5.1."),
+    (r"\.stage(\d)_m(\d+)\.fuse(\d+)_(\d+)_conv\.",
+     r".stage\1.\2.fuse_layers.\3.\4.0."),
+    (r"\.stage(\d)_m(\d+)\.fuse(\d+)_(\d+)_bn\.",
+     r".stage\1.\2.fuse_layers.\3.\4.1."),
+    (r"\.conv3x3_ocr_conv\.", ".conv3x3_ocr.0."),
+    (r"\.conv3x3_ocr_bn\.", ".conv3x3_ocr.1."),
+    (r"\.ocr_distri_head\.proj_conv\.", ".ocr_distri_head.conv_bn_dropout.0."),
+    (r"\.ocr_distri_head\.proj_bn\.", ".ocr_distri_head.conv_bn_dropout.1.0."),
+    (r"\.ocr_distri_head\.f_(pixel|object|down|up)\.conv0\.",
+     r".ocr_distri_head.object_context_block.f_\1.0."),
+    (r"\.ocr_distri_head\.f_(pixel|object|down|up)\.bn0\.",
+     r".ocr_distri_head.object_context_block.f_\1.1.0."),
+    (r"\.ocr_distri_head\.f_(pixel|object|down|up)\.conv1\.",
+     r".ocr_distri_head.object_context_block.f_\1.2."),
+    (r"\.ocr_distri_head\.f_(pixel|object|down|up)\.bn1\.",
+     r".ocr_distri_head.object_context_block.f_\1.3.0."),
+    (r"\.aux_head_conv1\.", ".aux_head.0."),
+    (r"\.aux_head_bn\.", ".aux_head.1."),
+    (r"\.aux_head_conv2\.", ".aux_head.3."),
+)
+
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
@@ -121,3 +166,8 @@ def state_dict_from_flax(params: Mapping,
 def fbrs_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax tree of FBRSDeepLabModel -> the port's state_dict."""
     return state_dict_from_flax(params, _FBRS_RULES)
+
+
+def fbrs_hrnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax tree of FBRSHRNetModel -> the port's state_dict."""
+    return state_dict_from_flax(params, _FBRS_HRNET_RULES)

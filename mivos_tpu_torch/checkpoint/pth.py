@@ -3,6 +3,7 @@ the f-BRS click models) -> the port's modules. The port's module names
 are the reference's, so the state_dicts load as they are."""
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Union
 
 import torch
@@ -54,10 +55,10 @@ def attention_read_state_dict(
 
 def detect_fbrs_model(sd: Mapping[str, torch.Tensor]) -> Dict:
     """The f-BRS architecture of a reference state dict (the port's copy
-    of mivos_tpu/checkpoint/convert.py:281-306; reference
-    fbrs/inference/utils.py:21-100). Returns 'kind' ('deeplab' |
-    'hrnet') and, for DeepLab, its constructor kwargs; the HRNet model
-    is not ported, so its widths are not read."""
+    of mivos_tpu/checkpoint/convert.py:281-314; reference
+    fbrs/inference/utils.py:21-100). Returns 'kind' ('deeplab' | 'hrnet')
+    and the model's constructor kwargs: for DeepLab the backbone and ch,
+    for HRNet the width, the OCR width and `small` (two layer1 blocks)."""
     keys = sd.keys()
     if any(k.startswith("feature_extractor.backbone") for k in keys):
         # Depth from the backbone's parameter count (utils.py:69-80; past
@@ -78,5 +79,10 @@ def detect_fbrs_model(sd: Mapping[str, torch.Tensor]) -> Dict:
         return {"kind": "deeplab", "backbone": arch, "ch": ch}
     if any(".stage2." in k or k.startswith("feature_extractor.stage2")
            for k in keys):
-        return {"kind": "hrnet"}
+        width = int(sd["feature_extractor.transition1.0.0.weight"].shape[0])
+        ocr = int(sd["feature_extractor.conv3x3_ocr.0.weight"].shape[0]) // 2
+        layer1 = re.compile(r"feature_extractor\.layer1\.(\d+)\.")
+        blocks = 1 + max(int(m.group(1)) for m in map(layer1.match, keys) if m)
+        return {"kind": "hrnet", "width": width, "ocr_width": ocr,
+                "small": blocks == 2}
     raise ValueError("unrecognized fbrs checkpoint")

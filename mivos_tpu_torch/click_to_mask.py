@@ -6,9 +6,12 @@ examples/click_to_mask.py).
       --output mask.png
 
 Click syntax: "y,x,+" is positive (object), "y,x,-" negative
-(background), space-separated. Modes: NoBRS and f-BRS-B. Without
---fbrs_model the model is the reference GUI's resnet50_dh128 with
-random weights from a fixed seed (a pipeline smoke test). --device cuda
+(background), space-separated. --brs_mode: NoBRS, f-BRS-A, f-BRS-B,
+f-BRS-C, RGB-BRS or DistMap-BRS (reference
+fbrs/inference/predictors/__init__.py). --fbrs_model is a reference
+f-BRS checkpoint of either family, DeepLab or HRNet-OCR, detected from
+its keys. Without it the model is the reference GUI's resnet50_dh128
+with random weights from a fixed seed (a pipeline smoke test). --device cuda
 (the default) needs a CUDA device and fails without one. Reading and
 writing images needs PIL.
 """
@@ -19,7 +22,7 @@ import torch
 
 from mivos_tpu_torch.data.transforms import im_normalize
 from mivos_tpu_torch.interactive.clicker import Click, Clicker
-from mivos_tpu_torch.interactive.fbrs_predictor import get_predictor
+from mivos_tpu_torch.interactive.fbrs_predictor import BRS_MODES, get_predictor
 from mivos_tpu_torch.utils.palette import save_indexed_png
 
 
@@ -45,7 +48,7 @@ def parse_args(argv=None):
     p.add_argument("--image", required=True)
     p.add_argument("--fbrs_model")
     p.add_argument("--clicks", required=True, help='e.g. "120,340,+ 80,500,-"')
-    p.add_argument("--brs_mode", default="f-BRS-B", choices=("NoBRS", "f-BRS-B"))
+    p.add_argument("--brs_mode", default="f-BRS-B", choices=BRS_MODES)
     p.add_argument("--zoom_target", type=int, default=480)
     p.add_argument("--output", default="mask.png")
     p.add_argument("--device", default="cuda",

@@ -6,7 +6,9 @@ partially finish and finish, with probs_history pairs (committed,
 additive). FBRSController (reference interact/fbrs_controller.py): the
 GUI-facing wrapper with the per-frame `anchored` latch and the f-BRS-B
 settings (ZoomIn target 480, expansion 1.4, 8-click net limit, L-BFGS
-maxiter 20). Probability maps are kept on the host as (H, W) arrays.
+maxiter 20). The model is either f-BRS family (FBRSDeepLabModel or
+FBRSHRNetModel); on HRNet, f-BRS-B scales the stride-4 features
+(insertion 'A'). Probability maps are kept on the host as (H, W) arrays.
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ import numpy as np
 import torch
 
 from mivos_tpu_torch.interactive.clicker import Click, Clicker
-from mivos_tpu_torch.interactive.fbrs_predictor import FeatureBRSPredictor, ZoomIn
-from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
+from mivos_tpu_torch.interactive.fbrs_predictor import (FBRSModel,
+                                                        FeatureBRSPredictor,
+                                                        ZoomIn)
 
 
 class InteractiveController:
-    def __init__(self, net: FBRSDeepLabModel, prob_thresh: float = 0.5,
+    def __init__(self, net: FBRSModel, prob_thresh: float = 0.5,
                  zoom_target: int = 480, zoom_expand: float = 1.4,
                  net_clicks_limit: int = 8, lbfgs_maxfun: int = 20,
                  device: torch.device | str = "cuda"):
@@ -119,7 +122,7 @@ class InteractiveController:
 class FBRSController:
     """GUI-facing wrapper (reference interact/fbrs_controller.py:6-53)."""
 
-    def __init__(self, net: FBRSDeepLabModel,
+    def __init__(self, net: FBRSModel,
                  device: torch.device | str = "cuda"):
         self.controller = InteractiveController(net, prob_thresh=0.5,
                                                 device=device)

@@ -1,14 +1,20 @@
-"""f-BRS-B predictor: feature-space scale/bias optimization on the
+"""f-BRS predictors: feature-space scale/bias optimization (f-BRS-A, -B,
+-C) and input-space bias optimization (RGB-BRS, DistMap-BRS) on the
 device (counterpart of mivos_tpu/interactive/fbrs_predictor.py;
 reference fbrs/inference/predictors/{base,brs,brs_functors,brs_losses}.py
 and transforms/{zoom_in,flip,limit_longest_side}.py).
 
-Per click:
+Per click, in the feature-space modes:
 
-  ZoomIn crop -> [image, flipped image] batch -> cached after-ASPP
-  features (no autograd) -> L-BFGS over (scale, bias) through the small
-  head replay (autograd) -> sigmoid -> unflip-average -> paste back into
-  the full frame.
+  ZoomIn crop -> [image, flipped image] batch -> cached head input at
+  the mode's insertion point (no autograd) -> L-BFGS over (scale, bias)
+  through the mode's head replay (autograd) -> sigmoid -> unflip-average
+  -> paste back into the full frame.
+
+The input-space modes optimize an additive bias on the RGB input or on
+the click distance maps through the whole network instead. With a
+ground-truth mask attached (`set_oracle_gt`), the feature-space modes
+fit the mask itself (OracleMaskLoss) instead of the clicks.
 
 ZoomIn rounds crop sizes up to multiples of 32 as the JAX package does;
 that changes the crop's aspect, and so the output. The JAX package's
@@ -19,89 +25,217 @@ them. Tensors are NCHW on the predictor's device; the frame enters as
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import math
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from mivos_tpu_torch.interactive.clicker import Click
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
+from mivos_tpu_torch.models.hrnet import FBRSHRNetModel
 from mivos_tpu_torch.ops.distmaps import pad_points
 from mivos_tpu_torch.ops.lbfgs import lbfgs_minimize
 from mivos_tpu_torch.ops.resize import bilinear_resize_align_corners as up_ac
+from mivos_tpu_torch.train.fbrs_losses import sigmoid_bce_from_probs
 
-# brs.py / brs_functors.py settings of f-BRS-B, as the JAX package runs
-# them (fbrs_predictor.py:49-52).
+FBRSModel = Union[FBRSDeepLabModel, FBRSHRNetModel]
+HeadInput = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
+
+# brs.py / brs_functors.py settings, as the JAX package runs them
+# (mivos_tpu/interactive/fbrs_predictor.py:56-58, 501-502, 542).
 REG_WEIGHT, REG_BIAS_WEIGHT = 1e-3, 10.0
 PROB_THRESH, MIN_IOU_DIFF = 0.49, 0.01
 LBFGS_MEMORY = 20
+INPUT_REG_WEIGHT, INPUT_LBFGS_MEMORY = 1e-4, 10
+# OracleMaskLoss's stop: the loss moved less than this between two
+# consecutive iterations (the JAX rule, not the reference's 5-step window).
+ORACLE_PLATEAU = 1e-5
 # ZoomIn (reference zoom_in.py): the previous map is cut at this
 # probability to find the object, and the crop is recomputed when the
 # new box overlaps the old one by less than this IoU.
 ZOOM_PROB_THRESH, ZOOM_RECOMPUTE_IOU = 0.5, 0.5
-_UNPORTED = "(ROADMAP queue 1, item 8)"
+
+# insertion mode -> (head-input method, replay method, input is a pair).
+# DeepLab modes are the reference's brs.py:54-140 insertion points; 'A'
+# and 'C' the HRNet ones (brs.py:143-225). For 'after_c4' the cached
+# input is the pair (c4, projected c1): scale and bias apply to c4, c1
+# stays constant.
+INSERTION_MODES = {
+    "after_aspp": ("head_input", "head_replay", False),
+    "after_c4": ("head_input_c4", "head_replay_c4", True),
+    "after_deeplab": ("head_input_deeplab", "head_replay_deeplab", False),
+    "A": ("head_input", "head_replay", False),
+    "C": ("head_input_ocr", "head_replay_cls", False),
+}
 
 
-def fbrs_objective(net: FBRSDeepLabModel, feats: torch.Tensor,
-                   pos_mask: torch.Tensor, neg_mask: torch.Tensor,
-                   out_hw: Tuple[int, int]):
-    """The f-BRS-B objective over x = (scale - 1, bias) of the cached head
-    input (fbrs_predictor.py:76-109). feats: (2, C, h, w) after-ASPP
-    features of [image, flipped image]; pos/neg_mask: (1, 1, H, W) click
-    maps. Returns (predict, loss_fn): predict(x) -> (2, 1, H, W) logits;
-    loss_fn(x) -> (loss, (max positive miss, max negative miss, mask))."""
+def head_replay(net: FBRSModel, insertion_mode: str, head_input: HeadInput,
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+    """The mode's replay of a head input -> (B, 1, h, w) logits; on the
+    unscaled input it is the full forward."""
+    _, method, pair = INSERTION_MODES[insertion_mode]
+    replay = getattr(net, method)
+    return replay(*head_input, out_hw) if pair else replay(head_input, out_hw)
+
+
+def _scaled_predict(net: FBRSModel, insertion_mode: str,
+                    head_input: HeadInput, out_hw: Tuple[int, int]):
+    """predict(x) over x = (scale - 1, bias) of the head input's scaled
+    tensor (c4 in the pair mode), and its channel count C."""
+    pair = INSERTION_MODES[insertion_mode][2]
+    feats = head_input[0] if pair else head_input
     c = feats.shape[1]
 
     def predict(x):
         scaled = (feats * (1.0 + x[:c])[None, :, None, None]
                   + x[c:][None, :, None, None])
-        return net.head_replay(scaled, out_hw)
+        return head_replay(net, insertion_mode,
+                           (scaled, head_input[1]) if pair else scaled, out_hw)
+
+    return predict, c
+
+
+def _scale_bias_reg(x: torch.Tensor, c: int) -> torch.Tensor:
+    return REG_WEIGHT * ((x[:c] ** 2).sum() + REG_BIAS_WEIGHT * (x[c:] ** 2).sum())
+
+
+def flip_average(prob: torch.Tensor) -> torch.Tensor:
+    """(2B, 1, h, w) maps of [images, flipped images] -> (B, 1, h, w)
+    (brs_functors.py:51-54)."""
+    n = prob.shape[0] // 2
+    return 0.5 * (prob[:n] + torch.flip(prob[n:], dims=[-1]))
+
+
+def _click_loss(logits: torch.Tensor, pos_mask: torch.Tensor,
+                neg_mask: torch.Tensor):
+    """BRSMaskLoss (brs_losses.py:11-26) of the flip-averaged map, and the
+    early-exit aux: (max positive miss, max negative miss, mask)."""
+    r = flip_average(torch.sigmoid(logits))
+    pos_diff = (1.0 - r) * pos_mask
+    neg_diff = r * neg_mask
+    loss = ((pos_diff ** 2).sum() / (pos_mask.sum() + 1e-5)
+            + (neg_diff ** 2).sum() / (neg_mask.sum() + 1e-5))
+    aux = (pos_diff.detach().abs().max(), neg_diff.detach().abs().max(),
+           (r.detach() > PROB_THRESH)[0, 0])
+    return loss, aux
+
+
+def fbrs_objective(net: FBRSModel, head_input: HeadInput,
+                   pos_mask: torch.Tensor, neg_mask: torch.Tensor,
+                   out_hw: Tuple[int, int], insertion_mode: str = "after_aspp"):
+    """The f-BRS objective over x = (scale - 1, bias) of the cached head
+    input (fbrs_predictor.py:76-109). head_input: the mode's head input of
+    [image, flipped image] ((c4, c1) for 'after_c4'); pos/neg_mask:
+    (1, 1, H, W) click maps. Returns (predict, loss_fn): predict(x) ->
+    (2, 1, H, W) logits; loss_fn(x) -> (loss, (max positive miss, max
+    negative miss, mask))."""
+    predict, c = _scaled_predict(net, insertion_mode, head_input, out_hw)
 
     def loss_fn(x):
-        result = torch.sigmoid(predict(x))
-        # flip-average (brs_functors.py:51-54)
-        r = 0.5 * (result[:1] + torch.flip(result[1:], dims=[-1]))
-        pos_diff = (1.0 - r) * pos_mask
-        neg_diff = r * neg_mask
-        # BRSMaskLoss (brs_losses.py:11-26)
-        loss = ((pos_diff ** 2).sum() / (pos_mask.sum() + 1e-5)
-                + (neg_diff ** 2).sum() / (neg_mask.sum() + 1e-5))
-        reg = REG_WEIGHT * ((x[:c] ** 2).sum()
-                            + REG_BIAS_WEIGHT * (x[c:] ** 2).sum())
-        aux = (pos_diff.detach().abs().max(), neg_diff.detach().abs().max(),
-               (r.detach() > PROB_THRESH)[0, 0])
-        return loss + reg, aux
+        loss, aux = _click_loss(predict(x), pos_mask, neg_mask)
+        return loss + _scale_bias_reg(x, c), aux
 
     return predict, loss_fn
+
+
+def _clicks_met(aux):
+    f_max_pos, f_max_neg, _ = aux
+    return (f_max_pos < 1 - PROB_THRESH) & (f_max_neg < PROB_THRESH)
 
 
 def _clicks_met_or_converged(aux, last_mask):
     """f-BRS's early exit (brs_functors.py:56-77): every click satisfied,
     or the mask within min_iou_diff of the last iterate's."""
-    f_max_pos, f_max_neg, mask = aux
-    clicks_ok = (f_max_pos < 1 - PROB_THRESH) & (f_max_neg < PROB_THRESH)
+    mask = aux[2]
     inter = (mask & last_mask).sum()
     union = (mask | last_mask).sum()
     converged = inter / union.clamp(min=1) > 1 - MIN_IOU_DIFF
-    return clicks_ok | converged, mask
+    return _clicks_met(aux) | converged, mask
 
 
-def fbrs_optimize(net: FBRSDeepLabModel, feats: torch.Tensor,
+def fbrs_optimize(net: FBRSModel, head_input: HeadInput,
                   pos_mask: torch.Tensor, neg_mask: torch.Tensor,
                   x0: torch.Tensor, out_hw: Tuple[int, int],
-                  maxiter: int = 20):
+                  maxiter: int = 20, insertion_mode: str = "after_aspp"):
     """L-BFGS over the (scale, bias) of the cached head input
     (fbrs_predictor.py:76-122), from x0 (2C,). Returns (best_x, logits at
     best_x (2, 1, H, W), info of lbfgs_minimize)."""
-    predict, loss_fn = fbrs_objective(net, feats, pos_mask, neg_mask, out_hw)
+    predict, loss_fn = fbrs_objective(net, head_input, pos_mask, neg_mask,
+                                      out_hw, insertion_mode)
     last_mask0 = torch.zeros(tuple(out_hw), dtype=torch.bool,
-                             device=feats.device)
+                             device=x0.device)
     best_x, info = lbfgs_minimize(loss_fn, x0, maxiter=maxiter,
                                   memory_size=LBFGS_MEMORY,
                                   stop_fn=_clicks_met_or_converged,
                                   stop_state0=last_mask0)
     with torch.no_grad():
         return best_x, predict(best_x), info
+
+
+def _loss_plateau(loss, last_loss):
+    return (loss - last_loss).abs() < ORACLE_PLATEAU, loss
+
+
+def optimize_oracle(net: FBRSModel, head_input: HeadInput, gt: torch.Tensor,
+                    x0: torch.Tensor, out_hw: Tuple[int, int],
+                    maxiter: int = 20, insertion_mode: str = "after_aspp"):
+    """OracleMaskLoss BRS (fbrs_predictor.py:124-160; reference
+    brs_losses.py:29-58): the (scale, bias) fitted to the ground-truth
+    mask gt (1, 1, H, W) by BCE on the probabilities of [image, flipped
+    image] against [gt, flipped gt], instead of to the clicks. Stops when
+    the loss moves less than ORACLE_PLATEAU between two iterations.
+    Returns (best_x, logits at best_x, info)."""
+    predict, c = _scaled_predict(net, insertion_mode, head_input, out_hw)
+    gt2 = torch.cat([gt, torch.flip(gt, dims=[-1])])
+
+    def loss_fn(x):
+        loss = sigmoid_bce_from_probs(torch.sigmoid(predict(x)), gt2).mean()
+        return loss + _scale_bias_reg(x, c), loss.detach()
+
+    best_x, info = lbfgs_minimize(
+        loss_fn, x0, maxiter=maxiter, memory_size=LBFGS_MEMORY,
+        stop_fn=_loss_plateau,
+        stop_state0=torch.tensor(math.inf, device=x0.device))
+    with torch.no_grad():
+        return best_x, predict(best_x), info
+
+
+def input_brs_optimize(net: FBRSModel, batch: torch.Tensor,
+                       points: torch.Tensor, pos_mask: torch.Tensor,
+                       neg_mask: torch.Tensor, x0: torch.Tensor, target: str,
+                       maxiter: int = 20):
+    """RGB-BRS (target 'rgb') or DistMap-BRS ('dist'): L-BFGS over an
+    additive bias on the network input, through the whole network
+    (fbrs_predictor.py:501-553; reference brs.py:228-280). batch
+    (2, 3, h, w) [image, flipped image], points (2, 2P, 2); x0
+    (2, h, w, 3 or 2), one bias per batch entry, channels last as in the
+    JAX package. Returns (best_x shaped like x0, logits (2, 1, h, w),
+    info)."""
+    shape = x0.shape
+    zeros = (torch.zeros(batch.shape[0], 2, *batch.shape[-2:],
+                         device=batch.device) if target == "rgb"
+             else torch.zeros_like(batch))
+
+    def predict(xflat):
+        x = xflat.view(shape).permute(0, 3, 1, 2)
+        rgb_bias, coord_bias = (x, zeros) if target == "rgb" else (zeros, x)
+        return net.forward_with_input_bias(batch, points, rgb_bias, coord_bias)
+
+    def loss_fn(xflat):
+        loss, aux = _click_loss(predict(xflat), pos_mask, neg_mask)
+        return loss + INPUT_REG_WEIGHT * (xflat ** 2).sum(), aux
+
+    def clicks_met(aux, last_mask):
+        return _clicks_met(aux), aux[2]
+
+    last_mask0 = torch.zeros(tuple(batch.shape[-2:]), dtype=torch.bool,
+                             device=batch.device)
+    best_x, info = lbfgs_minimize(loss_fn, x0.reshape(-1), maxiter=maxiter,
+                                  memory_size=INPUT_LBFGS_MEMORY,
+                                  stop_fn=clicks_met, stop_state0=last_mask0)
+    with torch.no_grad():
+        return best_x.view(shape), predict(best_x), info
 
 
 # ---------------------------------------------------------------------------
@@ -248,24 +382,26 @@ class ZoomIn:
 
 
 # ---------------------------------------------------------------------------
-# Predictor
+# Predictors
 # ---------------------------------------------------------------------------
 
 class FeatureBRSPredictor:
-    """Feature-space BRS over a DistMaps model (reference brs.py:54-140),
-    always with flip and flip-averaging, scale and bias inserted after
-    the ASPP (f-BRS-B, insertion_mode 'after_aspp'; f-BRS-A/C and HRNet
-    are not ported yet). The net moves to `device` and its weights
-    stop requiring gradients: autograd runs only toward (scale, bias).
-    Call get_prediction outside torch.inference_mode (the optimization
-    needs autograd)."""
+    """Feature-space BRS over a DistMaps model (reference brs.py:54-225),
+    always with flip and flip-averaging. insertion_mode (INSERTION_MODES)
+    selects where scale and bias insert: 'after_c4' (f-BRS-A),
+    'after_aspp' (f-BRS-B) or 'after_deeplab' (f-BRS-C) on DeepLab
+    models, 'A' or 'C' on HRNet models. The net moves to `device` and its
+    weights stop requiring gradients: autograd runs only toward (scale,
+    bias). Call get_prediction outside torch.inference_mode (the
+    optimization needs autograd)."""
 
-    def __init__(self, net: FBRSDeepLabModel,
+    def __init__(self, net: FBRSModel,
                  zoom_in: Optional[ZoomIn] = None,
                  net_clicks_limit: int = 8,
                  optimize_after_n_clicks: int = 1,
                  maxiter: int = 20,
                  max_size: Optional[int] = None,
+                 insertion_mode: str = "after_aspp",
                  device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.net = net.to(self.device).eval().requires_grad_(False)
@@ -273,6 +409,12 @@ class FeatureBRSPredictor:
         self.net_clicks_limit = net_clicks_limit
         self.optimize_after_n_clicks = optimize_after_n_clicks
         self.maxiter = maxiter
+        self.insertion_mode = insertion_mode
+        self._head_input = getattr(self.net, INSERTION_MODES[insertion_mode][0])
+        self._input_is_pair = INSERTION_MODES[insertion_mode][2]
+        # OracleMaskLoss (reference brs_losses.py:29-58): with a mask
+        # attached, the optimization fits it instead of the clicks.
+        self.oracle_gt: Optional[torch.Tensor] = None
         # LimitLongestSide (reference transforms/limit_longest_side.py):
         # downscale oversize inputs before prediction, invert at the end.
         self.max_size = max_size
@@ -324,8 +466,10 @@ class FeatureBRSPredictor:
         return (torch.from_numpy(pos).to(self.device),
                 torch.from_numpy(neg).to(self.device))
 
-    def get_prediction(self, clicker) -> torch.Tensor:
-        """-> (H, W) probability map of the full frame, on the device."""
+    def _network_input(self, clicker):
+        """The clicks in the network's frame (LimitLongestSide, ZoomIn)
+        -> (those clicks, [image, flipped image] (2, 3, h, w), their
+        points (2, 2P, 2))."""
         clicks = clicker.get_clicks()
         if self._limit_scale != 1.0:
             s = self._limit_scale
@@ -336,18 +480,32 @@ class FeatureBRSPredictor:
         tclicks = clicks
         if self.zoom_in is not None:
             image, tclicks = self.zoom_in.transform(image, clicks)
-        h, w = image.shape[-2:]
-        num_clicks = len(tclicks)
-
+        w = image.shape[-1]
         points = self._points_nd(tclicks)
         # with_flip: batch = [image, hflip(image)], flipped clicks
         fpoints = points.clone()
         fpoints[..., 1] = torch.where(points[..., 1] >= 0,
                                       w - 1 - points[..., 1], -1.0)
         batch = torch.cat([image, torch.flip(image, dims=[-1])])
-        bpoints = torch.cat([points, fpoints])
+        return tclicks, batch, torch.cat([points, fpoints])
 
-        feats_key = (h, w, int(points.shape[1]), num_clicks)
+    def _frame_prob(self, logits: torch.Tensor) -> torch.Tensor:
+        """(2, 1, h, w) logits of the flip batch -> (H, W) probability map
+        of the full frame."""
+        prob = flip_average(torch.sigmoid(logits))
+        if self.zoom_in is not None:
+            prob = self.zoom_in.inv_transform(prob)
+        if self._limit_scale != 1.0:
+            prob = up_ac(prob, self._orig_hw)
+        return prob[0, 0]
+
+    def get_prediction(self, clicker) -> torch.Tensor:
+        """-> (H, W) probability map of the full frame, on the device."""
+        tclicks, batch, bpoints = self._network_input(clicker)
+        h, w = batch.shape[-2:]
+        num_clicks = len(tclicks)
+
+        feats_key = (h, w, int(bpoints.shape[1]), num_clicks)
         recompute = (self.input_data is None or self._input_key is None
                      or self._input_key[:2] != (h, w)
                      or (self.zoom_in is not None
@@ -355,9 +513,9 @@ class FeatureBRSPredictor:
                      or num_clicks <= self.net_clicks_limit)
         if recompute:
             with torch.no_grad():   # not inference_mode: autograd follows
-                self.input_data = self.net.head_input(batch, bpoints)
+                self.input_data = self._head_input(batch, bpoints)
             self._input_key = feats_key
-        feats = self.input_data
+        feats = self.input_data[0] if self._input_is_pair else self.input_data
         c = feats.shape[1]
         if self.opt_data is None or self.opt_data.shape[0] != 2 * c:
             self.opt_data = torch.zeros(2 * c, device=self.device)
@@ -365,27 +523,49 @@ class FeatureBRSPredictor:
         info = {"recomputed": recompute, "crop_hw": (h, w), "iters": 0,
                 "evals": 0, "host_reads": 0}
         if num_clicks > self.optimize_after_n_clicks:
-            pos_map, neg_map = self._clicks_maps(tclicks, (h, w))
-            self.opt_data, logits, opt_info = fbrs_optimize(
-                self.net, feats, pos_map, neg_map, self.opt_data, (h, w),
-                self.maxiter)
+            if self.oracle_gt is not None:
+                self.opt_data, logits, opt_info = optimize_oracle(
+                    self.net, self.input_data, self._oracle_gt_for_crop((h, w)),
+                    self.opt_data, (h, w), self.maxiter, self.insertion_mode)
+            else:
+                pos_map, neg_map = self._clicks_maps(tclicks, (h, w))
+                self.opt_data, logits, opt_info = fbrs_optimize(
+                    self.net, self.input_data, pos_map, neg_map,
+                    self.opt_data, (h, w), self.maxiter, self.insertion_mode)
             info.update(iters=opt_info["iters"], evals=opt_info["evals"],
                         host_reads=opt_info["host_reads"])
         else:
-            # The full forward is head_replay of head_input, which is the
-            # input just cached for these clicks.
+            # The full forward is the replay of the head input just cached
+            # for these clicks.
             with torch.no_grad():
-                logits = self.net.head_replay(feats, (h, w))
+                logits = head_replay(self.net, self.insertion_mode,
+                                     self.input_data, (h, w))
         self.last_info = info
-        prob = torch.sigmoid(logits)
-        # flip-average back to a single map
-        prob = 0.5 * (prob[:1] + torch.flip(prob[1:], dims=[-1]))
+        return self._frame_prob(logits)
 
-        if self.zoom_in is not None:
-            prob = self.zoom_in.inv_transform(prob)
+    def set_oracle_gt(self, gt_mask) -> None:
+        """gt_mask: (H, W) or (1, 1, H, W) at the frame's resolution, or
+        None to return to the click loss."""
+        if gt_mask is None:
+            self.oracle_gt = None
+            return
+        gt = torch.as_tensor(gt_mask).to(self.device, torch.float32)
+        self.oracle_gt = gt[None, None] if gt.ndim == 2 else gt
+
+    def _oracle_gt_for_crop(self, hw) -> torch.Tensor:
+        """The ground truth in the frame of the network input: scaled as
+        LimitLongestSide scales the frame, cut to the ZoomIn crop and
+        resized to it (reference brs_losses.py:44-48)."""
+        gt = self.oracle_gt
         if self._limit_scale != 1.0:
-            prob = up_ac(prob, self._orig_hw)
-        return prob[0, 0]
+            gt = up_ac(gt, self.original_image.shape[-2:])
+        roi = self.zoom_in._object_roi if self.zoom_in is not None else None
+        if roi is not None:
+            r1, r2, c1, c2 = roi[:4]
+            gt = gt[..., r1:r2 + 1, c1:c2 + 1]
+        if tuple(gt.shape[-2:]) != tuple(hw):
+            gt = up_ac(gt, tuple(hw))
+        return gt
 
     def get_states(self):
         return {
@@ -404,13 +584,62 @@ class FeatureBRSPredictor:
         self._input_key = states["input_key"]
 
 
-def get_predictor(net: FBRSDeepLabModel, brs_mode: str = "f-BRS-B",
+class InputBRSPredictor(FeatureBRSPredictor):
+    """RGB-BRS (target 'rgb') and DistMap-BRS ('dist'): the variable is an
+    additive bias on the network input, one per batch entry, kept across
+    clicks while the crop keeps its size (input_brs_optimize). Click
+    handling, ZoomIn, flip-averaging and LimitLongestSide are the feature
+    predictor's; every evaluation runs the whole network."""
+
+    def __init__(self, net: FBRSModel, target: str = "rgb", **kw):
+        if target not in ("rgb", "dist"):
+            raise ValueError(f"unknown input BRS target {target}")
+        super().__init__(net, **kw)
+        self.target = target
+
+    def get_prediction(self, clicker) -> torch.Tensor:
+        tclicks, batch, bpoints = self._network_input(clicker)
+        h, w = batch.shape[-2:]
+        shape = (2, h, w, 3 if self.target == "rgb" else 2)
+        if self.opt_data is None or tuple(self.opt_data.shape) != shape:
+            self.opt_data = torch.zeros(shape, device=self.device)
+
+        info = {"recomputed": True, "crop_hw": (h, w), "iters": 0,
+                "evals": 0, "host_reads": 0}
+        if len(tclicks) > self.optimize_after_n_clicks:
+            pos_map, neg_map = self._clicks_maps(tclicks, (h, w))
+            self.opt_data, logits, opt_info = input_brs_optimize(
+                self.net, batch, bpoints, pos_map, neg_map, self.opt_data,
+                self.target, self.maxiter)
+            info.update(iters=opt_info["iters"], evals=opt_info["evals"],
+                        host_reads=opt_info["host_reads"])
+        else:
+            with torch.no_grad():
+                logits = self.net.forward_with_input_bias(
+                    batch, bpoints, torch.zeros_like(batch),
+                    batch.new_zeros((2, 2, h, w)))
+        self.last_info = info
+        return self._frame_prob(logits)
+
+
+BRS_MODES = ("NoBRS", "f-BRS-A", "f-BRS-B", "f-BRS-C", "RGB-BRS", "DistMap-BRS")
+
+
+def get_predictor(net: FBRSModel, brs_mode: str = "f-BRS-B",
                   zoom_in_params: Optional[dict] = None,
                   predictor_params: Optional[dict] = None,
                   device: torch.device | str = "cuda"):
     """Predictor by BRS mode (reference fbrs/inference/predictors/
-    __init__.py:8-95): NoBRS (no online optimization) and f-BRS-B
-    (scale/bias after ASPP)."""
+    __init__.py:8-95):
+
+    NoBRS        no online optimization
+    f-BRS-A      scale and bias after c4 (DeepLab), HRNet 'A'
+    f-BRS-B      after the ASPP (DeepLab), HRNet 'A'
+    f-BRS-C      after the DeepLab head, HRNet 'C' (after the OCR)
+    RGB-BRS      an additive bias on the RGB input
+    DistMap-BRS  an additive bias on the click distance maps
+
+    The input-space modes default to net_clicks_limit 5."""
     zoom_in = None
     if zoom_in_params is not None:
         zoom_in = ZoomIn(**zoom_in_params)
@@ -418,9 +647,17 @@ def get_predictor(net: FBRSDeepLabModel, brs_mode: str = "f-BRS-B",
     kw.update(zoom_in=zoom_in, device=device)
     if brs_mode == "NoBRS":
         return FeatureBRSPredictor(net, optimize_after_n_clicks=10 ** 9, **kw)
-    if brs_mode == "f-BRS-B":
-        return FeatureBRSPredictor(net, **kw)
-    if brs_mode in ("f-BRS-A", "f-BRS-C", "RGB-BRS", "DistMap-BRS"):
-        raise NotImplementedError(f"BRS mode {brs_mode} is not ported yet "
-                                  f"{_UNPORTED}")
+    if brs_mode in ("f-BRS-A", "f-BRS-B", "f-BRS-C"):
+        if isinstance(net, FBRSHRNetModel):
+            # HRNet maps A and B to the pre-OCR insertion and C to the
+            # post-OCR one (reference predictors/__init__.py:61-63).
+            insertion = "C" if brs_mode == "f-BRS-C" else "A"
+        else:
+            insertion = {"f-BRS-A": "after_c4", "f-BRS-B": "after_aspp",
+                         "f-BRS-C": "after_deeplab"}[brs_mode]
+        return FeatureBRSPredictor(net, insertion_mode=insertion, **kw)
+    if brs_mode in ("RGB-BRS", "DistMap-BRS"):
+        kw.setdefault("net_clicks_limit", 5)
+        return InputBRSPredictor(net, "rgb" if brs_mode == "RGB-BRS" else "dist",
+                                 **kw)
     raise ValueError(f"unknown BRS mode {brs_mode}")

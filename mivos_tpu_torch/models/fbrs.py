@@ -11,14 +11,17 @@ loads with strict=True and mivos_tpu/checkpoint/convert.py::convert_fbrs
 maps this state_dict onto the flax tree. Every BatchNorm is frozen, every
 resize is align_corners=True, and dropout (eval mode) is left out.
 
-The model exposes the three entry points the f-BRS-B predictor uses:
-`head_input` (the after-ASPP features, computed once per click),
-`head_replay` (the small differentiable tail the L-BFGS evaluates) and
-`forward`, their composition.
+The model exposes the entry points the f-BRS predictors use: for each
+insertion point a head input (computed once per click) and a head replay
+(the differentiable tail the L-BFGS evaluates): `head_input`/
+`head_replay` after the ASPP (f-BRS-B), `head_input_c4`/`head_replay_c4`
+after c4 (f-BRS-A), `head_input_deeplab`/`head_replay_deeplab` after the
+DeepLab head (f-BRS-C); `forward_with_input_bias` for RGB-BRS and
+DistMap-BRS; and `forward`, the full network.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -284,18 +287,61 @@ class FBRSDeepLabModel(nn.Module):
         """image (B, 3, H, W), points (B, 2P, 2) -> (B, ch + 32, H/4, W/4)
         after-ASPP features: the tensor f-BRS-B scales and biases
         (brs.py:121-140, insertion_mode 'after_aspp')."""
+        return self.feature_extractor.features(self._rgb_input(image, points))
+
+    def _rgb_input(self, image: torch.Tensor, points: torch.Tensor,
+                   coord_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """rgb_conv over the image and its click distance maps (plus
+        DistMap-BRS's bias)."""
         coord = dist_maps(points, image.shape[-2], image.shape[-1],
                           self.norm_radius)
-        x = self.rgb_conv(torch.cat([image, coord], dim=1))
-        return self.feature_extractor.features(x)
+        if coord_bias is not None:
+            coord = coord + coord_bias
+        return self.rgb_conv(torch.cat([image, coord], dim=1))
 
     def head_replay(self, feats: torch.Tensor,
                     out_hw: Tuple[int, int]) -> torch.Tensor:
         """The differentiable tail of f-BRS-B (brs.py:82-103): DeepLab
         head, SepConvHead, align-corners upsample to out_hw ->
         (B, 1, h, w) logits."""
-        x = self.head(self.feature_extractor.head(feats))
-        return up_ac(x, out_hw)
+        return self.head_replay_deeplab(self.feature_extractor.head(feats),
+                                        out_hw)
+
+    def head_input_c4(self, image: torch.Tensor, points: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """f-BRS-A's insertion ('after_c4', brs.py:121-140): the backbone's
+        c4 (the scale and bias target) and the projected c1, which stays
+        constant through the optimization."""
+        c1, _, _, c4 = self.feature_extractor.backbone(
+            self._rgb_input(image, points))
+        return c4, self.feature_extractor.skip_project(c1)
+
+    def head_replay_c4(self, c4: torch.Tensor, c1: torch.Tensor,
+                       out_hw: Tuple[int, int]) -> torch.Tensor:
+        """f-BRS-A's replay (brs.py:91-103): ASPP over c4, upsampled and
+        joined to the cached c1, then both heads."""
+        a = up_ac(self.feature_extractor.aspp(c4), c1.shape[-2:])
+        return self.head_replay(torch.cat([a, c1], dim=1), out_hw)
+
+    def head_input_deeplab(self, image: torch.Tensor,
+                           points: torch.Tensor) -> torch.Tensor:
+        """f-BRS-C's insertion ('after_deeplab', brs.py:54-67): the DeepLab
+        feature extractor's output, ch wide; only SepConvHead replays."""
+        return self.feature_extractor.head(self.head_input(image, points))
+
+    def head_replay_deeplab(self, feats: torch.Tensor,
+                            out_hw: Tuple[int, int]) -> torch.Tensor:
+        return up_ac(self.head(feats), out_hw)
+
+    def forward_with_input_bias(self, image: torch.Tensor, points: torch.Tensor,
+                                rgb_bias: torch.Tensor,
+                                coord_bias: torch.Tensor) -> torch.Tensor:
+        """Input-space BRS forward (reference InputBRSPredictor,
+        brs.py:228-280): additive biases on the RGB input (RGB-BRS) and
+        on the click distance maps (DistMap-BRS) -> (B, 1, H, W) logits."""
+        x = self._rgb_input(image + rgb_bias, points, coord_bias)
+        return self.head_replay(self.feature_extractor.features(x),
+                                image.shape[-2:])
 
     def forward(self, image: torch.Tensor,
                 points: torch.Tensor) -> torch.Tensor:

@@ -100,11 +100,11 @@ class ClippedAdam:
 
 
 def _prepare(net: torch.nn.Module, params: Optional[StateDict], seed: int,
-             device) -> torch.nn.Module:
-    """Load `params` (a state_dict, strict) or draw flax-style weights
-    from `seed`, then move the net to `device`."""
+             device, init_flavor: str = "default") -> torch.nn.Module:
+    """Load `params` (a state_dict, strict) or draw weights of the
+    init flavour from `seed`, then move the net to `device`."""
     if params is None:
-        init_params(net, torch.Generator().manual_seed(seed))
+        init_params(net, torch.Generator().manual_seed(seed), init_flavor)
     else:
         net.load_state_dict(params, strict=True)
     return net.to(device)
@@ -256,12 +256,13 @@ class FBRSPretrainer(_Pretrainer):
     ResNet-34 saturates its head after one step there (the JAX package's
     round-5 measurement). `calibrate_bn=True` writes measured input
     statistics into every FrozenBatchNorm (calibrate_frozen_bn, 10
-    iterations on the first batch) after a random init.
+    iterations on the first batch) after a random init. `net` may be
+    either f-BRS family (FBRSDeepLabModel or FBRSHRNetModel).
 
-    init_flavor: None or 'default' (flax's defaults). The reference's
-    from-scratch 'gluon' distribution is not ported yet."""
+    init_flavor: None or 'default' (flax's defaults), or 'gluon' (the
+    reference's from-scratch distribution, models/initializer.py)."""
 
-    def __init__(self, net: Optional[FBRSDeepLabModel] = None,
+    def __init__(self, net: Optional[torch.nn.Module] = None,
                  params: Optional[StateDict] = None, lr: float = 2e-4,
                  hw: Tuple[int, int] = (192, 192),
                  num_objects: int = 1,  # single-object task (API parity
@@ -269,14 +270,10 @@ class FBRSPretrainer(_Pretrainer):
                  n_points: int = 8, batch: int = 4,
                  init_flavor: Optional[str] = None,
                  calibrate_bn: bool = False, device="cuda"):
-        if init_flavor not in (None, "default"):
-            raise NotImplementedError(
-                f"init_flavor {init_flavor!r}: the gluon Xavier init is not "
-                "ported yet (ROADMAP queue 1, item 3)")
         self.net = net or FBRSDeepLabModel(arch="resnet50", ch=128)
         self.hw, self.p, self.batch = tuple(hw), n_points, batch
         self.device = torch.device(device)
-        _prepare(self.net, params, seed, self.device)
+        _prepare(self.net, params, seed, self.device, init_flavor or "default")
         if params is None and calibrate_bn:
             imgs, pts, _ = self._to_device(*self.make_batch(seed))
             calibrate_frozen_bn(self.net, lambda: self.net(imgs, pts), iters=10)

@@ -39,6 +39,7 @@ from mivos_tpu_torch.interactive.clicker import Click, Clicker
 from mivos_tpu_torch.interactive.fbrs_controller import FBRSController
 from mivos_tpu_torch.models import build_fbrs_from_state_dict
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
+from mivos_tpu_torch.models.hrnet import FBRSHRNetModel
 from mivos_tpu_torch.ops.distmaps import dist_maps, pad_points
 from mivos_tpu_torch.ops.lbfgs import lbfgs_minimize
 from mivos_tpu_torch.ops.resize import bilinear_resize_align_corners
@@ -184,9 +185,14 @@ def test_bridge_round_trip_and_detection(nets):
             {k: v.numpy() for k, v in state.items()})
     twin = build_fbrs_from_state_dict(net.state_dict())
     assert (twin.arch, twin.ch) == (ARCH, CH)
-    with pytest.raises(NotImplementedError):
-        build_fbrs_from_state_dict(
-            {"feature_extractor.stage2.0.weight": torch.zeros(1)})
+    # An HRNet-OCR state dict builds its model, strictly loaded.
+    hrnet = FBRSHRNetModel(18, 64, small=True).state_dict()
+    built = build_fbrs_from_state_dict(hrnet)
+    assert isinstance(built, FBRSHRNetModel)
+    assert (built.width, built.ocr_width, built.small) == (18, 64, True)
+    assert all(torch.equal(v, hrnet[k]) for k, v in built.state_dict().items())
+    with pytest.raises(ValueError):
+        build_fbrs_from_state_dict({"conv1.weight": torch.zeros(1)})
 
 
 # ---------------------------------------------------------------- L-BFGS
@@ -377,9 +383,10 @@ def test_nobrs_with_limit_longest_side_matches_jax(nets):
         out = tpred.get_prediction(clicker).numpy()
         assert out.shape == (H, W) and tpred.last_info["iters"] == 0
         np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)   # 1e-4 abs
-    for mode in ("f-BRS-A", "f-BRS-C", "RGB-BRS", "DistMap-BRS"):
-        with pytest.raises(NotImplementedError):
-            tfp.get_predictor(net, mode, device="cpu")
+    for mode, kind in (("f-BRS-A", "after_c4"), ("f-BRS-C", "after_deeplab"),
+                       ("RGB-BRS", "rgb"), ("DistMap-BRS", "dist")):
+        pred = tfp.get_predictor(net, mode, device="cpu")
+        assert getattr(pred, "target", None) == kind or pred.insertion_mode == kind
     with pytest.raises(ValueError):
         tfp.get_predictor(net, "no-such-mode", device="cpu")
 
@@ -423,8 +430,21 @@ def test_fbrs_controller_trajectory_matches_jax(nets):
 
 # ---------------------------------------------------------------- entry point
 
-@pytest.mark.parametrize("brs_mode", ["NoBRS", "f-BRS-B"])
-def test_click_to_mask_writes_the_mask(tmp_path, brs_mode):
+@pytest.fixture()
+def one_torch_thread():
+    """One intra-op thread: the suite runs several test processes on the
+    same cores, and torch's OpenMP pool spinning against the others made
+    one RGB-BRS run (a ResNet-50 forward and backward per evaluation)
+    take minutes instead of seconds."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize("brs_mode", ["NoBRS", "f-BRS-A", "f-BRS-B", "f-BRS-C",
+                                      "RGB-BRS", "DistMap-BRS"])
+def test_click_to_mask_writes_the_mask(tmp_path, brs_mode, one_torch_thread):
     from PIL import Image
 
     from mivos_tpu_torch import click_to_mask

@@ -164,7 +164,7 @@ def test_fbrs_pretrainer_calibrate_bn_matches_jax(fbrs_setup, resnet10,
     tree = _f64(tree)
     monkeypatch.setattr(j_fbrs, "init_params", lambda *a, **k: tree)
     monkeypatch.setattr(pretrain, "init_params",
-                        lambda module, gen: module.load_state_dict(fresh_sd))
+                        lambda module, gen, *flavor: module.load_state_dict(fresh_sd))
     seed, kw = 11, dict(lr=LR, hw=(FH, FW), n_points=F_POINTS, batch=F_BATCH)
     with jax.enable_x64(True):
         jtr = jpt.FBRSPretrainer(net=JFBRS(arch="resnet10", ch=F_CH),
@@ -184,9 +184,24 @@ def test_fbrs_pretrainer_calibrate_bn_matches_jax(fbrs_setup, resnet10,
                       (fbrs_state_dict_from_flax(tree), calibrated))
 
 
-def test_fbrs_pretrainer_refuses_the_gluon_init():
-    with pytest.raises(NotImplementedError):
-        pretrain.FBRSPretrainer(init_flavor="gluon", device="cpu")
+def test_fbrs_pretrainer_refuses_the_gluon_init(resnet10):
+    """The gluon flavour, once refused, now builds and steps: XavierGluon
+    kernels within their bounds, unit BN gammas, a finite step that moves
+    the weights; an unknown flavour is refused."""
+    tr = pretrain.FBRSPretrainer(net=FBRSDeepLabModel("resnet10", ch=F_CH),
+                                 init_flavor="gluon", hw=(FH, FW),
+                                 n_points=F_POINTS, batch=F_BATCH, device="cpu")
+    before = {k: v.clone() for k, v in tr.net.state_dict().items()}
+    w = before["feature_extractor.backbone.layer1.0.conv1.weight"]
+    fan = w.shape[1] * w[0, 0].numel(), w.shape[0] * w[0, 0].numel()
+    assert float(w.abs().max()) <= (3.0 / (sum(fan) / 2)) ** 0.5
+    assert torch.all(before["feature_extractor.backbone.bn1.weight"] == 1)
+    loss, iou = tr.step(0)
+    assert np.isfinite(loss) and 0.0 <= iou <= 1.0
+    assert not torch.equal(tr.net.state_dict()["head.layers.2.weight"],
+                           before["head.layers.2.weight"])
+    with pytest.raises(ValueError):
+        pretrain.FBRSPretrainer(init_flavor="lecun", device="cpu")
 
 
 # ---------------------------------------------------------------- calibrate
