@@ -193,12 +193,39 @@ Phases (any failure exits non-zero before the final line):
              zeroed just before, equal to its reads times the fp32 launches
              per read), 100 iterations at batch 12 with the loss
              descending; its seconds, PNG share and losses.
+ 14. multichip  the multi-device paths, on distinct cards where the host
+             has as many as a mesh has positions, else on meshes that
+             repeat cuda:0 (printed): (1) the bank-sharded exact read on
+             the gate's banks (K = 3, N = 1620, M = 21060 and 42120, the
+             last TAIL slots invalid, fp32 and bf16) over 2 and 4
+             position shards and 3 object x 2 position shards, and the
+             object-sharded read over 3 object shards (the read kernels
+             on each), the object-sharded and 2D reads as the sessions
+             run them (each object shard's readout left on its device),
+             against the unsharded exact read (the gate's bounds: mean
+             < 1e-3, max < 0.3 of the readout scale), CUDA-event ms
+             beside the exact and the kernel read; (2) bank-sharded (4 positions),
+             object-sharded (3 objects) and 2D (3 x 2) sessions, the
+             bench protocol's 60 frames 480x854, K = 3, a first round and
+             a fusion round on frame 59, fp32 nets with TF32 off, held
+             to the unsharded session on the same read backend (mc_sessions);
+             the same modes in bf16, frames/s after a warm session, the
+             read kernels' launches (zeroed just before each mode: the
+             object-sharded reads launch each kernel once a read on
+             every object shard, bank and 2D reads none) and, profiled,
+             the CUDA kernels a frame; (3) DDP: 3 FusionTrainer steps at
+             batch 12, 384x384, fp32, over min(4, cards) NCCL ranks, or
+             2 gloo ranks on cuda:0 on one card, against one process on
+             the whole batch, and SyncBatchNorm over the ranks against
+             one process (mc_ddp); step ms of each; (4) the dry run
+             (parallel/dryrun.py) on 4 positions.
 The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds, the
-davis run, serve, gui, fusion_gen and the pretrain phase's held-out
-session; fp32: the session's fp32 rounds and the pretrain phase's
-generate_fusion), "max_abs_err" is the worst of the gates of its bank
+davis run, serve, gui, fusion_gen, the pretrain phase's held-out
+session and the multichip phase's bf16 object-sharded and 2D rounds;
+fp32: the session's fp32 rounds, the pretrain phase's generate_fusion
+and the multichip phase's fp32 object-sharded rounds), "max_abs_err" is the worst of the gates of its bank
 dtype (random-init and pretrained banks), "ms",
 "plain_ms" and "bound_ms" are at M = 21060. The last line is
 {"ok": true, "device": {...}}.
@@ -247,15 +274,20 @@ from mivos_tpu_torch.interactive.s2m_controller import S2MController
 from mivos_tpu_torch.interactive.scribbles import is_empty, scribbles2mask
 from mivos_tpu_torch.models import build_fbrs_from_state_dict
 from mivos_tpu_torch.models.fbrs import FBRSDeepLabModel
-from mivos_tpu_torch.models.fusion import FusionNet
+from mivos_tpu_torch.models.fusion import AttentionReadNetwork, FusionNet
 from mivos_tpu_torch.models.hrnet import FBRSHRNetModel
 from mivos_tpu_torch.models.initializer import init_params
-from mivos_tpu_torch.models.layers import FrozenBatchNorm
+from mivos_tpu_torch.models.layers import FrozenBatchNorm, SyncBatchNorm
 from mivos_tpu_torch.models.propagation import PropagationNetwork
 from mivos_tpu_torch.models.s2m import S2MNetwork
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
 from mivos_tpu_torch.ops.cuda.build import load_library
 from mivos_tpu_torch.ops.memory_read import memory_read
+from mivos_tpu_torch.parallel.dryrun import dryrun_multichip, fusion_batch, train_rank
+from mivos_tpu_torch.parallel.mesh import make_mesh, make_mesh_nd
+from mivos_tpu_torch.parallel.ranks import run_ranks
+from mivos_tpu_torch.parallel.sharded_memory import (object_sharded_memory_read, shard_bank,
+                                                     sharded_memory_read)
 from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_gracefully
 from mivos_tpu_torch.train.fbrs_losses import sigmoid_bce_from_probs
 from mivos_tpu_torch.train.pretrain import PropPretrainer, batches
@@ -2449,6 +2481,338 @@ def phase_pretrain(dev, tmp):
     return {"session": session_counts, "fusion_gen": fusion_counts}, errs
 
 
+# ----------------------------------------------------------------------
+# multichip: sharded reads and sessions on a device mesh, data-parallel
+# training over ranks, the dry run.
+# ----------------------------------------------------------------------
+
+MC_SHARDS = (2, 4)                  # position shards of the sharded read
+MC_OBJECT, MC_2D = 3, (3, 2)        # object axis; object x data
+MC_BANK_D = 4                       # position shards of the bank-sharded session
+# max |dp| on frames 1-5, fp32, TF32 off: the reads agree to rounding
+# (1e-7 of the readout scale), but a top-k near-tie that one read
+# resolves otherwise moves a pixel by up to ~1e-3.
+MC_PROB_TOL = 2e-3
+MC_MARGIN, MC_AGREE = 0.07, 1 - 4e-4   # decided pixels; the envelope's flips
+MC_DDP_BATCH, MC_DDP_HW, MC_DDP_STEPS = 12, 384, 3
+MC_BN_SHAPE = (12, 64, 48, 48)      # N, C, H, W of the SyncBatchNorm check
+MC_BN_TOL = 1e-4                    # fp32 sums in another order, values ~1
+MC_DRYRUN = 4
+MC_PROFILE_T = 6                    # frames of the profiled clip
+
+
+def mc_devices(n):
+    """n mesh positions: n distinct cards when the host has them, else
+    cuda:0 repeated n times (one card)."""
+    count = torch.cuda.device_count()
+    if count >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", 0)] * n
+
+
+def mc_layout(mesh):
+    devs = [str(d) for d in mesh.devices.reshape(-1)]
+    return {"axes": mesh.shape, "devices": devs,
+            "repeated": len(set(devs)) < len(devs)}
+
+
+def mc_read(dev):
+    """The bank-sharded exact read on the gate's banks (K = 3, N = 1620,
+    M = 21060 and 42120, the last TAIL slots invalid, fp32 and bf16) over
+    MC_SHARDS position shards and the 2D layout (MC_2D object x data),
+    and the object-sharded read over MC_OBJECT object shards (the read
+    kernels on each), against the unsharded exact torch.topk read: mean
+    error < 1e-3 and max < 0.3 of the readout scale (the kernel gate's
+    bounds). The object-sharded and 2D reads run as the sessions run
+    them, each object shard's readout left on its device (gather=False).
+    CUDA-event ms of each beside the exact read and the kernel read."""
+    mk_all, mv_all, q = gate_banks(dev)
+    layouts = {f"data{d}": (make_mesh(d, devices=mc_devices(d)), "data", None)
+               for d in MC_SHARDS}
+    layouts[f"object{MC_OBJECT}"] = (make_mesh(MC_OBJECT, axis="object",
+                                               devices=mc_devices(MC_OBJECT)),
+                                     None, "object")
+    layouts["object3xdata2"] = (make_mesh_nd(object=MC_2D[0], data=MC_2D[1],
+                                             devices=mc_devices(int(np.prod(MC_2D)))),
+                                "data", "object")
+
+    def read(mesh, axis, obj, grids, valid):
+        if axis is None:
+            return object_sharded_memory_read(mesh, *grids, q, TOP_K, valid, obj,
+                                              gather=False)
+        return sharded_memory_read(mesh, *grids, q, TOP_K, valid, axis, obj,
+                                   gather=obj is None)
+
+    log(json.dumps({"multichip_meshes": {n: mc_layout(m) for n, (m, _, _) in layouts.items()}}))
+    m_all = mk_all.shape[1]
+    for m in (m_all // 2, m_all):
+        valid = torch.arange(m, device=dev) < m - TAIL
+        for dtype in (F32, BF16):
+            mk = mk_all[:, :m].to(dtype).contiguous()
+            mv = mv_all[:, :m].to(dtype).contiguous()
+            exact_fn = lambda: memory_read(mk, mv, q, top_k=TOP_K, valid=valid,  # noqa: E731
+                                           backend="exact")
+            exact = exact_fn()
+            scale = exact.abs().mean().item()
+            rep = {"K": mk.shape[0], "N": q.shape[0], "M": m, "dtype": str(dtype)[6:],
+                   "readout_scale": scale, "exact_ms": cuda_ms(exact_fn, 3, 1),
+                   "kernel_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
+                       mk, mv, q, TOP_K, valid)), "sharded": {}}
+            for name, (mesh, axis, obj) in layouts.items():
+                grids = shard_bank(mesh, mk, mv, axis, obj)
+                fn = lambda: read(mesh, axis, obj, grids, valid)  # noqa: E731
+                out = fn()
+                out = out if obj is None else torch.cat([r.to(dev) for r in out])
+                err = (out - exact).abs()
+                r = {"vs_exact_mean": err.mean().item(), "vs_exact_max": err.max().item(),
+                     "ms": cuda_ms(fn, 3, 1)}
+                rep["sharded"][name] = r
+                check(r["vs_exact_mean"] < 1e-3 * scale and r["vs_exact_max"] < 0.3 * scale,
+                      f"sharded read {name} vs exact {rep}")
+                del grids
+            log(json.dumps({"multichip_read": rep}))
+            del mk, mv, exact
+
+
+def mc_modes():
+    """mode -> (mesh, MemoryConfig sharding fields, the unsharded
+    session's read backend it is held to)."""
+    return {
+        "bank": (make_mesh(MC_BANK_D, devices=mc_devices(MC_BANK_D)),
+                 dict(bank_sharded=True), "exact"),
+        "object": (make_mesh(MC_OBJECT, axis="object", devices=mc_devices(MC_OBJECT)),
+                   dict(object_sharded=True), "auto"),
+        "2d": (make_mesh_nd(object=MC_2D[0], data=MC_2D[1],
+                            devices=mc_devices(int(np.prod(MC_2D)))),
+               dict(object_sharded=True, bank_sharded=True), "exact")}
+
+
+def label_mask(lab):
+    """(K+1, H, W, 1) hard probabilities of a label map."""
+    fg = (lab[None] == np.arange(1, K + 1)[:, None, None]).astype(np.float32)
+    return np.concatenate([1.0 - fg.sum(0, keepdims=True), fg])[..., None]
+
+
+def mc_rounds(core, masks):
+    """The session's first round (frame 0) and fusion round (frame T-1)
+    under `masks`, as many as it holds: per round the (T, K+1, nh, nw)
+    probabilities and the seconds."""
+    out = []
+    for idx, mask in zip((0, T - 1), masks):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = core.interact(mask, idx)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        session_invariants(core, labels)
+        out.append((torch.stack([core.get_prob(t)[:, 0] for t in range(T)]), dt))
+    return out
+
+
+def mc_sessions(dev):
+    """Each sharded mode's two rounds on fp32 nets (TF32 off) against the
+    unsharded session on the same read backend: max |dp| on frames 1-5
+    <= MC_PROB_TOL, and labels equal on >= MC_AGREE of the pixels the
+    unsharded session decides by > MC_MARGIN, every frame, both rounds.
+    Then bf16 rounds per mode (frames/s of a first and a fusion round
+    and of a second session's first round; a warm session first) with the
+    read kernels' launches, zeroed just before each mode and read just
+    after: the object-sharded reads launch each kernel once a read on
+    each object shard; bank and 2D reads are the exact sharded read and
+    launch none. Then the CUDA kernels a frame of the unsharded and the
+    object-sharded bf16 sessions launch (profiler, a MC_PROFILE_T-frame
+    clip). Returns (fp32 object launches, bf16 launches by mode)."""
+    t0 = time.perf_counter()
+    frames, labels = synthetic_video(31, T, RH, RW, K)
+    frames = torch.from_numpy(frames).to(dev)
+    masks = [label_mask(labels[0]), label_mask(labels[T - 1])]
+    modes = mc_modes()
+    prop32, fuse = make_nets(dev, F32)
+    nets = {}
+    for backend in ("exact", "auto"):    # shallow copies share the weights
+        nets[backend] = copy.copy(prop32)
+        nets[backend].read_backend = backend
+    refs = {backend: mc_rounds(InferenceCore(prop, fuse, frames, K, mem=MemoryConfig(
+        top_k=TOP_K, mem_freq=MEM_FREQ), device=dev), masks)
+        for backend, prop in nets.items()}
+    fp32_object_launches = None
+    for mode, (mesh, sharding, backend) in modes.items():
+        prop = nets[backend]
+        mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ, **sharding)
+        cmr.reset_launch_counts()
+        got = mc_rounds(InferenceCore(prop, fuse, frames, K, mem=mem, mesh=mesh,
+                                      device=dev), masks)
+        counts = cmr.launch_counts()
+        if mode == "object":   # each object shard reads 59 + 58 frames
+            fp32_object_launches = counts
+            for name, n in cmr.launches_per_read(F32, 0).items():
+                want = n * (2 * T - 3) * MC_OBJECT
+                check(counts[name] == want,
+                      f"fp32 object: {name} launched {counts[name]} times, want {want}")
+        rep = {"mode": mode, "mesh": mc_layout(mesh), "dtype": "float32",
+               "held_to": f"unsharded, read {backend}", "rounds": []}
+        for (ref, ref_s), (p, s) in zip(refs[backend], got):
+            top2 = ref.topk(2, dim=1).values
+            decided = (top2[:, 0] - top2[:, 1]) > MC_MARGIN
+            agree = (ref.argmax(1) == p.argmax(1))[decided].float().mean().item()
+            rep["rounds"].append({
+                "max_dp_frames_1_5": (ref[1:6] - p[1:6]).abs().max().item(),
+                "max_dp_all": (ref - p).abs().max().item(),
+                "mean_dp_all": (ref - p).abs().mean().item(),
+                "decided_share": decided.float().mean().item(),
+                "decided_agreement": agree, "round_s": s, "unsharded_round_s": ref_s})
+        log(json.dumps({"multichip_session": rep}))
+        for r in rep["rounds"]:
+            check(r["max_dp_frames_1_5"] <= MC_PROB_TOL and r["decided_agreement"] >= MC_AGREE,
+                  f"{mode} session vs unsharded {rep}")
+    del refs
+    log(f"multichip fp32 sessions: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    prop, fuse = make_nets(dev, BF16)
+    bf16, launches = {}, {}
+    for mode, (mesh, sharding, _) in {"unsharded": (None, {}, "auto"), **modes}.items():
+        mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ, **sharding)
+        new = lambda: InferenceCore(prop, fuse, frames, K, mem=mem, mesh=mesh,  # noqa: E731
+                                    device=dev)
+        new().interact(masks[0], 0)                 # warm
+        cmr.reset_launch_counts()
+        (_, first_s), (_, fusion_s) = mc_rounds(new(), masks)
+        (_, again_s), = mc_rounds(new(), masks[:1])
+        launches[mode] = cmr.launch_counts()
+        reads = 3 * (T - 1) - 1                     # 59 + 58 + 59 frames propagated
+        per_read = cmr.launches_per_read(BF16, 0)
+        shards = MC_OBJECT if mode == "object" else 1
+        want = 0 if sharding.get("bank_sharded") else reads * shards
+        for name, n in per_read.items():
+            check(launches[mode][name] == n * want,
+                  f"{mode}: {name} launched {launches[mode][name]} times, want {n * want}")
+        bf16[mode] = {"first_round_frames_s": [(T - 1) / first_s, (T - 1) / again_s],
+                      "fusion_round_frames_s": (T - 2) / fusion_s,
+                      "read_kernel_launches": sum(launches[mode].values()),
+                      "read_kernel_launches_per_frame": sum(launches[mode].values()) / reads}
+    for mode in ("unsharded", "object"):   # a short clip: the profiler's events add up
+        mesh, sharding = (None, {}) if mode == "unsharded" else modes[mode][:2]
+        mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ, **sharding)
+        core = InferenceCore(prop, fuse, frames[:MC_PROFILE_T], K, mem=mem, mesh=mesh,
+                             device=dev)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            core.interact(masks[0], 0)
+            torch.cuda.synchronize()
+        kernels = sum(a.count for a in prof.key_averages()
+                      if a.device_type == torch.autograd.DeviceType.CUDA)
+        bf16[mode]["cuda_kernels_per_frame"] = kernels / (MC_PROFILE_T - 1)
+    log(json.dumps({"multichip_session_bf16": bf16}))
+    log(f"multichip bf16 sessions: {time.perf_counter() - t0:.1f} s")
+    return fp32_object_launches, launches
+
+
+def mc_ddp(dev):
+    """Data-parallel FusionTrainer steps (MC_DDP_STEPS at batch
+    MC_DDP_BATCH, MC_DDP_HW^2, fp32, TF32 off, deterministic cuDNN plans)
+    and SyncBatchNorm over the ranks, against one process on the whole
+    batch. World: min(4, cards) ranks over NCCL on two or more cards,
+    else 2 ranks on cuda:0 over gloo. Weights: Adam moves an entry at
+    most ~lr a step, and a gradient entry within rounding of zero may
+    flip its step, so max |dw| <= 2 lr * steps; every other entry must
+    agree: the 99.9th percentile of |dw| <= 1e-2 lr (without the ranks'
+    gradient mean the half-batch steps part by ~lr on most entries)."""
+    count = torch.cuda.device_count()
+    world, backend = ((min(4, count), "nccl") if count >= 2 else (2, "gloo"))
+    devs = [f"cuda:{i if count >= 2 else 0}" for i in range(world)]
+    rng = np.random.RandomState(9)
+    bn_x = (rng.randn(*MC_BN_SHAPE) * 2.0 + 0.5).astype(np.float32)
+    bn_g = rng.randn(*MC_BN_SHAPE).astype(np.float32)
+    attn = attention_read_state_dict(init_params(AttentionReadNetwork(),
+                                                 torch.Generator().manual_seed(4)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(train_rank, world, (devs, attn, MC_DDP_BATCH, MC_DDP_HW,
+                                          MC_DDP_STEPS, bn_x, bn_g),
+                      backend=backend, timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+
+    with cudnn_mode(benchmark=False, deterministic=True):
+        bn = SyncBatchNorm(MC_BN_SHAPE[1]).to(dev)
+        x = torch.from_numpy(bn_x).to(dev).requires_grad_(True)
+        bn(x)
+        y = bn(x)
+        (y * torch.from_numpy(bn_g).to(dev)).sum().backward()
+        bn_err = {
+            "y": float(np.abs(np.concatenate([r["bn_y"] for r in ranks])
+                              - y.detach().cpu().numpy()).max()),
+            "dx": float(np.abs(np.concatenate([r["bn_dx"] for r in ranks])
+                               - x.grad.cpu().numpy()).max()),
+            "dweight": float(np.abs(sum(r["bn_dweight"] for r in ranks)
+                                    - bn.weight.grad.cpu().numpy()).max()
+                             / np.abs(bn.weight.grad.cpu().numpy()).max()),
+            "dbias": float(np.abs(sum(r["bn_dbias"] for r in ranks)
+                                  - bn.bias.grad.cpu().numpy()).max()
+                           / np.abs(bn.bias.grad.cpu().numpy()).max()),
+            "running": max(float(np.abs(r["bn_running"][i] - t.cpu().numpy()).max())
+                           for r in ranks for i, t in enumerate(
+                               (bn.running_mean, bn.running_var)))}
+        trainer = FusionTrainer(TrainConfig(iterations=100, steps=(80,),
+                                            batch_size=MC_DDP_BATCH), attn, device=dev)
+        init = {k: v.clone() for k, v in trainer.fuse_net.state_dict().items()}
+        one_ms, one_loss = [], []
+        for s in range(MC_DDP_STEPS):
+            b = fusion_batch(MC_DDP_BATCH, MC_DDP_HW, MC_DDP_HW, s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one_loss.append(float(trainer.train_step(b)["total_loss"]))
+            torch.cuda.synchronize()
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+    lr = trainer.cfg.lr
+    diffs = np.concatenate([np.abs(ranks[0]["weights"][k] - v.cpu().numpy()).ravel()
+                            for k, v in trainer.fuse_net.state_dict().items()])
+    moved = max(float((v - init[k]).abs().max()) for k, v in trainer.fuse_net.state_dict().items())
+    rep = {"world": world, "backend": backend, "devices": devs, "spawn_s": spawn_s,
+           "models": sorted({r["model"] for r in ranks}),
+           "rank_step_ms": [r["step_ms"] for r in ranks], "one_process_step_ms": one_ms,
+           "rank_losses": [r["loss"] for r in ranks], "one_process_losses": one_loss,
+           "weights_max_abs_diff": float(diffs.max()),
+           "weights_p999_abs_diff": float(np.quantile(diffs, 0.999)),
+           "weights_moved": moved, "lr": lr,
+           "ranks_agree": all(np.array_equal(ranks[0]["weights"][k], r["weights"][k])
+                              for r in ranks for k in r["weights"]),
+           "syncbn_err": bn_err}
+    log(json.dumps({"multichip_ddp": rep}))
+    check(rep["models"] == ["DistributedDataParallel"], f"ranks not under DDP {rep}")
+    check(rep["ranks_agree"], "the ranks' weights differ")
+    check(moved >= lr, f"the steps did not move the weights {rep}")
+    check(rep["weights_max_abs_diff"] <= 2 * lr * MC_DDP_STEPS
+          and rep["weights_p999_abs_diff"] <= 1e-2 * lr, f"DDP vs one process {rep}")
+    check(max(bn_err.values()) <= MC_BN_TOL, f"SyncBatchNorm vs one process {bn_err}")
+    return rep
+
+
+def phase_multichip(dev):
+    """Returns (fp32 object-session launches, bf16 launches by mode)."""
+    count = torch.cuda.device_count()
+    log(json.dumps({"multichip_host": {
+        "cards": count, "meshes": "distinct cards where a mesh has no more "
+                                  "positions than cards, else cuda:0 repeated"}}))
+    t0 = time.perf_counter()
+    mc_read(dev)
+    torch.cuda.empty_cache()
+    log(f"multichip read: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with cudnn_mode(benchmark=False, deterministic=True):
+        launches = mc_sessions(dev)
+    torch.cuda.empty_cache()
+    log(f"multichip sessions: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mc_ddp(dev)
+    torch.cuda.empty_cache()
+    log(f"multichip ddp: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dryrun_multichip(MC_DRYRUN, mc_devices(MC_DRYRUN))
+    log(f"multichip dryrun: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     card = phase_card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2510,14 +2874,21 @@ def main():
             t0 = time.perf_counter()
             pretrain_launches, pretrain_errs = phase_pretrain(dev, tmp)
             log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mc_object_fp32, mc_launches = phase_multichip(dev)
+    log(f"multichip phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
         paths = ({"session": launches_bf16, "davis": davis_launches,
                   "serve": serve_launches, "gui": gui_launches,
                   "fusion_gen": fusion_gen_launches,
-                  "pretrain_session": pretrain_launches["session"]} if dtype == BF16
+                  "pretrain_session": pretrain_launches["session"],
+                  "object_session": mc_launches["object"],
+                  "session_2d": mc_launches["2d"]} if dtype == BF16
                  else {"session_fp32": launches_f32,
-                       "pretrain_fusion_gen": pretrain_launches["fusion_gen"]})
+                       "pretrain_fusion_gen": pretrain_launches["fusion_gen"],
+                       "object_session_fp32": mc_object_fp32})
         by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         session = paths["session" if dtype == BF16 else "session_fp32"]
         for c in counters:   # the session paths run every kernel (davis: no refine)

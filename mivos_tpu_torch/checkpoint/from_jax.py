@@ -10,7 +10,9 @@ flax): conv kernels HWIO -> OIHW (`_conv_kernel`, :39), FrozenBatchNorm
 `conv1`, `conv2_0/1`, `conv3_0/1` -> the reference Sequential indices
 (:139-145), and S2MNetwork's DeepLab head (`project`, `aspp.b0-b3`,
 `aspp.pool_conv`, `aspp.project`, `classifier0/1`) -> the reference
-Sequential indices (`convert_s2m`, :156-172). FBRSDeepLabModel has a
+Sequential indices (`convert_s2m`, :156-172), and a trainable
+SyncBatchNorm's `scale`/`bias` params and `batch_stats` `mean`/`var`
+-> (weight, bias, running_mean, running_var). FBRSDeepLabModel has a
 table of its own (`fbrs_state_dict_from_flax`, the inverse of
 `convert_fbrs`, :177-225), so no FusionNet rule touches its names, and so
 has FBRSHRNetModel (`fbrs_hrnet_state_dict_from_flax`, the inverse of
@@ -144,14 +146,28 @@ def state_dict_from_flax(params: Mapping,
     """Flax tree ({'params': ...} or the bare tree) of PropagationNetwork,
     FusionNet, S2MNetwork or AttentionReadNetwork (its modules carry the
     propagation names) -> the port's state_dict (fp32 torch tensors).
-    `rules` renames the dotted flax paths."""
+    `rules` renames the dotted flax paths. With a 'batch_stats'
+    collection beside 'params', each module holding statistics there is
+    a SyncBatchNorm: its scale becomes `weight`, its mean and var
+    `running_mean` and `running_var`."""
+    flat: Dict[str, np.ndarray] = {}
+    synced = set()   # SyncBatchNorm module paths
     if "params" in params and isinstance(params["params"], Mapping):
+        for path, val in _flatten(params.get("batch_stats", {})).items():
+            module, leaf = path.rsplit(".", 1) if "." in path else ("", path)
+            synced.add(module)
+            flat[f"{module}.running_{leaf}" if module else f"running_{leaf}"] = val
         params = params["params"]
     sd: Dict[str, torch.Tensor] = {}
     for path, val in _flatten(params).items():
+        module, leaf = path.rsplit(".", 1) if "." in path else ("", path)
+        if module in synced and leaf == "scale":
+            path = f"{module}.weight" if module else "weight"
+        flat[path] = val
+    for path, val in flat.items():
         parts = path.split(".")
         parent, leaf = (parts[-2] if len(parts) > 1 else ""), parts[-1]
-        if "bn" in parent:  # bn*, downsample_bn: FrozenBatchNorm only
+        if "bn" in parent and leaf in _BN_INV:  # bn*, downsample_bn: FrozenBatchNorm
             parts[-1] = _BN_INV[leaf]
         elif leaf == "kernel" and val.ndim == 4:
             parts[-1] = "weight"

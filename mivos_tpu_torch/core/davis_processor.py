@@ -29,11 +29,14 @@ class DAVISProcessor:
     def __init__(self, prop_net: PropagationNetwork,
                  fuse_net: Optional[FusionNet], s2m_net: S2MNetwork, images,
                  num_objects: int, mem: MemoryConfig = MemoryConfig(),
-                 device: torch.device | str = "cuda"):
-        """images: (T, h, w, 3) normalized (or uint8 RGB), UNPADDED."""
+                 device: torch.device | str = "cuda", mesh=None):
+        """images: (T, h, w, 3) normalized (or uint8 RGB), UNPADDED.
+        device, mesh: as InferenceCore's (mesh: a sharded session, whose
+        S2M runs on the session's device)."""
         self.k = num_objects
         self.processor = InferenceCore(prop_net, fuse_net, images, num_objects,
-                                       mem=mem, device=device)
+                                       mem=mem, device=device, mesh=mesh)
+        device = self.processor.device
         self.t, self.h, self.w = (self.processor.t, self.processor.h,
                                   self.processor.w)
         self.pad = self.processor.pad

@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from mivos_tpu_torch.config import MemoryConfig
-from mivos_tpu_torch.core.inference import InferenceCore
-from mivos_tpu_torch.serve.server import (device_scope, prepared_copies,
-                                          session_devices)
+from mivos_tpu_torch.core.inference import InferenceCore, prepared_copies
+from mivos_tpu_torch.parallel.mesh import device_scope
+from mivos_tpu_torch.serve.server import session_devices
 
 
 def fleet_map(fn: Callable, items: Sequence,

@@ -26,6 +26,51 @@ class Conv2d(nn.Conv2d):
         return super().forward(x.to(self.weight.dtype))
 
 
+class SyncBatchNorm(nn.Module):
+    """Trainable batch norm with statistics synchronized over processes
+    (counterpart of mivos_tpu/models/layers.py::SyncBatchNorm), the
+    module over ops/syncbn.py. MiVOS never trains a batch norm (fusion
+    training keeps them frozen, reference fusion_model.py:199-200); this
+    completes the training surface for fine-tuning the f-BRS click
+    models, whose upstream training used SyncBN.
+
+    Training mode normalizes with the batch statistics of every rank of
+    `process_group` (None: the default group, when one is up) and
+    updates the running averages as the JAX module does: momentum 0.9 on
+    the old value and the biased variance (torch.nn.SyncBatchNorm keeps
+    the unbiased one). Eval mode applies the running averages.
+    Parameters and buffers carry torch's batch-norm names (weight, bias,
+    running_mean, running_var); checkpoint/from_jax.py maps flax's
+    scale/bias and batch_stats mean/var onto them."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 process_group=None):
+        super().__init__()
+        self.momentum, self.eps, self.process_group = momentum, eps, process_group
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from mivos_tpu_torch.ops.syncbn import sync_batch_norm
+
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        if self.training:
+            y, (mean, var) = sync_batch_norm(x, self.weight, self.bias,
+                                             self.process_group, self.eps)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean)
+                self.running_var.mul_(m).add_((1 - m) * var)
+            return y
+        rs = torch.rsqrt(self.running_var + self.eps)
+        mul = (self.weight * rs).to(x.dtype).view(shape)
+        add = (self.bias - self.running_mean * self.weight * rs).to(
+            x.dtype).view(shape)
+        return x * mul + add
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics, a per-channel affine transform.
     The scale and shift fold in fp32 and are then cast to the

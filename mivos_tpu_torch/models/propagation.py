@@ -10,8 +10,13 @@ tensors, and `get_attention` returns NCHW (K, 2, H, W) maps, which is
 what `FusionNet` takes.
 
 Only the reference decoder (dec_width=1.0, the published checkpoint's
-architecture) and the single-device read are ported; the sharded-bank
-and object-mesh branches are not.
+architecture) is ported. `read_memory` routes the read as the JAX
+network does (mivos_tpu/models/propagation.py:243-270): with `bank_mesh`
+set, the banks are grids of position shards and the read is the exact
+sharded read; with `object_mesh` set, grids of object shards read on
+their own devices; otherwise the single-device read. `segment_logits`
+is that read and `decode`; an object-sharded session reads with
+gather=False and decodes each shard on its own device.
 """
 from __future__ import annotations
 
@@ -27,6 +32,8 @@ from mivos_tpu_torch.models.resnet import ResNet50
 from mivos_tpu_torch.ops.memory_read import (full_softmax_affinity,
                                              memory_read as _memory_read)
 from mivos_tpu_torch.ops.resize import area_downsample, bilinear_resize
+from mivos_tpu_torch.parallel.sharded_memory import (object_sharded_memory_read,
+                                                     sharded_memory_read)
 
 KEY_DIM = 128
 VAL_DIM = 512
@@ -84,6 +91,12 @@ class PropagationNetwork(nn.Module):
     oracle). read_refine: threshold-refine passes of the kernel
     (default 0, as in the JAX package). dtype: the compute dtype the
     session casts the conv weights to (the bank inherits it).
+
+    Read routing, set by InferenceCore from MemoryConfig like `km`:
+    `bank_mesh` (a Mesh; banks arrive as grids with their position axis
+    over `bank_axis`, and over `object_axis` too when `object_mesh` is
+    the same mesh: the 2D layout) or `object_mesh` (grids with the
+    object axis over `object_axis`).
     """
 
     def __init__(self, top_k: Optional[int] = 50, read_backend: str = "auto",
@@ -94,6 +107,10 @@ class PropagationNetwork(nn.Module):
         self.read_backend = read_backend
         self.read_refine = read_refine
         self.dtype = dtype
+        self.bank_mesh = None
+        self.bank_axis = "data"
+        self.object_mesh = None
+        self.object_axis = "object"
         self.mask_rgb_encoder = ResNet50(in_chans=5, conv_bias=True)
         self.rgb_encoder = ResNet50(in_chans=3, conv_bias=False,
                                     layer1_name="res2")
@@ -101,13 +118,18 @@ class PropagationNetwork(nn.Module):
         self.kv_q_f16 = KeyValue(1024, KEY_DIM, VAL_DIM)
         self.decoder = Decoder()
 
-    def memorize(self, frame: torch.Tensor, masks: torch.Tensor):
+    def memorize(self, frame: torch.Tensor, masks: torch.Tensor,
+                 others: Optional[torch.Tensor] = None):
         """frame (H, W, 3), masks (K, H, W, 1) soft per-object masks ->
-        keys (K, N, 128) and values (K, N, 512), N = H/16 * W/16."""
+        keys (K, N, 128) and values (K, N, 512), N = H/16 * W/16.
+        others: (K, H, W, 1), each object's sum of the frame's other
+        masks, when `masks` holds only some of its objects (an object
+        shard); by default computed from `masks`."""
         k = masks.shape[0]
         frames = _nchw(frame)[None].expand(k, -1, -1, -1)
         m = _nchw(masks).to(frames.dtype)
-        x = torch.cat([frames, m, compute_others(m)], dim=1)
+        others = compute_others(m) if others is None else _nchw(others).to(frames.dtype)
+        x = torch.cat([frames, m, others], dim=1)
         f16 = self.mask_rgb_encoder(x)[0]
         k16, v16 = self.kv_m_f16(f16)
         return _flatten_hw(k16), _flatten_hw(v16)
@@ -128,27 +150,62 @@ class PropagationNetwork(nn.Module):
         skip8, skip4 = self.decoder.skips(f8, f4)
         return skip8, skip4, k16, v16
 
-    def segment_logits(self, mem_k, mem_v, valid, f16, f8, f4, k16, v16,
-                       preskip: bool = False) -> torch.Tensor:
-        """Memory read + decode before the sigmoid (reference
-        prop_net.py:164-181). mem_k/mem_v: (K, M, C) bank; valid:
-        optional (M,) bool. k16/v16/f8/f4: batch-1 NCHW query tensors
-        (with preskip=True f8/f4 are the precomputed skip towers).
-        Returns (K, H, W, 1) fp32 logits. f16 is unused (the query key
-        and value carry the 1/16 features), kept for the JAX signature."""
-        del f16
-        k = mem_k.shape[0]
+    def read_memory(self, mem_k, mem_v, valid, k16: torch.Tensor,
+                    gather: bool = True):
+        """The memory read of `segment_logits`, routed as the JAX network
+        routes it (mivos_tpu/models/propagation.py:243-270): with
+        `bank_mesh` the exact sharded read (2D when `object_mesh` is set
+        too), else with `object_mesh` the object-sharded read, else the
+        single-device read. Returns the (K, N, CV) fp32 readout on k16's
+        device; gather=False: a list of the object shards' readouts,
+        each on its shard's device (one entry unless object-sharded)."""
         h16, w16 = k16.shape[-2:]
         qk = k16[0].flatten(1).t()  # (h16*w16, 128), row-major positions
-        readout = _memory_read(mem_k, mem_v, qk, top_k=self.top_k,
-                               valid=valid, km=self.km, query_hw=(h16, w16),
-                               backend=self.read_backend,
-                               n_refine=self.read_refine)
+        if self.bank_mesh is not None:
+            if self.km is not None:
+                raise ValueError("km is unsupported with a sharded bank")
+            top_k = self.top_k
+            if top_k is None:   # a full softmax: every row of the bank
+                top_k = sum(x.shape[1] for x in mem_k.reshape(-1))
+            object_axis = None if self.object_mesh is None else self.object_axis
+            return sharded_memory_read(
+                self.bank_mesh, mem_k, mem_v, qk, top_k=top_k, valid=valid,
+                axis=self.bank_axis, object_axis=object_axis, gather=gather)
+        elif self.object_mesh is not None:
+            return object_sharded_memory_read(
+                self.object_mesh, mem_k, mem_v, qk, top_k=self.top_k,
+                valid=valid, axis=self.object_axis, km=self.km,
+                query_hw=(h16, w16), backend=self.read_backend,
+                n_refine=self.read_refine, gather=gather)
+        out = _memory_read(mem_k, mem_v, qk, top_k=self.top_k, valid=valid,
+                           km=self.km, query_hw=(h16, w16),
+                           backend=self.read_backend, n_refine=self.read_refine)
+        return out if gather else [out]
+
+    def decode(self, readout: torch.Tensor, f8, f4, v16,
+               preskip: bool = False) -> torch.Tensor:
+        """(K, N, CV) readout + the query's value and skips -> (K, H, W, 1)
+        fp32 logits (reference prop_net.py:176-181)."""
+        k = readout.shape[0]
+        h16, w16 = v16.shape[-2:]
         readout = readout.transpose(1, 2).reshape(k, VAL_DIM, h16, w16)
         qv = v16.to(torch.float32).expand(k, -1, -1, -1)
         logits = self.decoder(torch.cat([readout, qv], dim=1), f8, f4,
                               preskip=preskip)
         return logits.movedim(1, -1)
+
+    def segment_logits(self, mem_k, mem_v, valid, f16, f8, f4, k16, v16,
+                       preskip: bool = False) -> torch.Tensor:
+        """Memory read + decode before the sigmoid (reference
+        prop_net.py:164-181). mem_k/mem_v: (K, M, C) bank, or grids of
+        shards (see the class docstring); valid: optional (M,) bool.
+        k16/v16/f8/f4: batch-1 NCHW query tensors (with preskip=True
+        f8/f4 are the precomputed skip towers). Returns (K, H, W, 1)
+        fp32 logits on the query's device. f16 is unused (the query key
+        and value carry the 1/16 features), kept for the JAX signature."""
+        del f16
+        return self.decode(self.read_memory(mem_k, mem_v, valid, k16),
+                           f8, f4, v16, preskip=preskip)
 
     def segment_with_query(self, mem_k, mem_v, valid, f16, f8, f4, k16, v16,
                            preskip: bool = False) -> torch.Tensor:

@@ -49,8 +49,6 @@ manager is at max_sessions and no slot frees within the create timeout
 """
 from __future__ import annotations
 
-import contextlib
-import copy
 import io
 import json
 import math
@@ -65,7 +63,8 @@ import numpy as np
 import torch
 
 from mivos_tpu_torch.config import MemoryConfig
-from mivos_tpu_torch.core.inference import InferenceCore, prepare_net
+from mivos_tpu_torch.core.inference import InferenceCore, prepared_copies
+from mivos_tpu_torch.parallel.mesh import device_scope
 from mivos_tpu_torch.utils.tensor import labels_to_probs
 
 
@@ -80,26 +79,6 @@ def session_devices(devices=None) -> List[torch.device]:
         raise RuntimeError("no CUDA device: pass devices=['cpu'] to run "
                            "on the CPU")
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
-
-def prepared_copies(nets, devices) -> Dict[torch.device, Tuple]:
-    """For each device, a deep copy of each net of `nets` (None stays
-    None) prepared for it (`prepare_net`). Sessions on other threads or
-    cards share these copies and never the caller's nets:
-    `InferenceCore` moves and casts the nets it is given in place, which
-    must not happen to a net another thread is running."""
-    return {dev: tuple(None if net is None else
-                       prepare_net(copy.deepcopy(net), dev) for net in nets)
-            for dev in devices}
-
-
-def device_scope(device: torch.device):
-    """`device` as the thread's current CUDA device for the block (a
-    no-op for the CPU). The current device is per thread, so each
-    worker or handler thread sets it itself."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
 
 
 class SessionNotFound(KeyError):

@@ -1,11 +1,22 @@
-"""Fusion-module training on one device (counterpart of the repository's
-train.py; reference train.py). Stage 0 = BL30K, stage 1 = DAVIS
-(reference util/hyper_para.py:46-53).
+"""Fusion-module training (counterpart of the repository's train.py;
+reference train.py). Stage 0 = BL30K, stage 1 = DAVIS (reference
+util/hyper_para.py:46-53).
 
   python -m mivos_tpu_torch.train --id retrain_s0 --stage 0 \
       --im_root ../BL30K/JPEGImages --gt_root ../BL30K/Annotations \
       --fd_root ../fusion_data/bl --load_prop saves/propagation_model.pth \
       [--device cuda|cuda:N|cpu]
+
+Data-parallel over N cards of one host, one process per card:
+
+  torchrun --nproc_per_node N -m mivos_tpu_torch.train ...
+
+Each rank trains on cuda:LOCAL_RANK (NCCL; with --device cpu, gloo on the
+CPU) with batch_size / N samples of the batch, which N must divide, from
+its own shard of each epoch's order (ShardedSampler); DDP averages the
+gradients, so the step is the one-process step of the whole batch. Only
+rank 0 logs and writes checkpoints. A rank never shares a card: with
+more ranks than cards the run stops.
 
 The frozen attention reader takes the propagation weights of --load_prop
 (.pth) or --load_prop_npz (flax .npz); without either it is random-init
@@ -14,8 +25,7 @@ FusionNet, optimizer, scheduler); --load_network loads FusionNet weights
 only. Checkpoints go to <save_dir>/<id>/ every save_every iterations,
 and on exit past 5000 iterations, with the FusionNet weights as
 final_<it>.pth (a fusion.pth). --device cuda (the default) fails without
-a CUDA device. Data-parallel training over several GPUs and the
-training-pair montage are not ported.
+a CUDA device. The training-pair montage is not ported.
 """
 import argparse
 import os
@@ -31,6 +41,7 @@ from mivos_tpu_torch.checkpoint.pth import (attention_read_state_dict,
 from mivos_tpu_torch.config import TrainConfig
 from mivos_tpu_torch.data.fusion_dataset import FusionDataset
 from mivos_tpu_torch.data.loader import Loader, ShardedSampler
+from mivos_tpu_torch.parallel.mesh import maybe_initialize_distributed
 from mivos_tpu_torch.train.trainer import FusionTrainer
 from mivos_tpu_torch.utils.integrator import Integrator
 from mivos_tpu_torch.utils.logger import TensorboardLogger
@@ -65,30 +76,51 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def rank_device(device: torch.device) -> torch.device:
+    """This rank's device: cuda:LOCAL_RANK under torchrun (one card per
+    rank, never shared), else `device`."""
+    if device.type != "cuda" or "LOCAL_RANK" not in os.environ:
+        return device
+    local = int(os.environ["LOCAL_RANK"])
+    if local >= torch.cuda.device_count():
+        raise SystemExit(f"local rank {local} has no card of its own "
+                         f"({torch.cuda.device_count()} CUDA devices)")
+    torch.cuda.set_device(local)
+    return torch.device("cuda", local)
+
+
 def main(argv=None):
     args = parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    device = rank_device(device)
+    rank, world = maybe_initialize_distributed(
+        "gloo" if device.type == "cpu" else "nccl")
+    if args.batch_size % world:
+        raise SystemExit(f"--batch_size {args.batch_size} is not divisible "
+                         f"by the {world} ranks")
     cfg = TrainConfig(stage=args.stage, batch_size=args.batch_size,
                       lr=args.lr, iterations=args.iterations,
                       steps=tuple(args.steps) if args.steps else None,
                       gamma=args.gamma, save_every=args.save_every,
                       report_every=args.report_every)
     iterations = cfg.resolved_iterations()
-    logger = TensorboardLogger(args.id)
-    logger.log_string("hyperpara", str(vars(args)))
+    logger = TensorboardLogger(args.id) if rank == 0 else None
+    if logger is not None:
+        logger.log_string("hyperpara", str(vars(args)))
 
     dataset = FusionDataset(args.im_root, args.gt_root, args.fd_root,
                             seed=cfg.seed)
-    loader = Loader(dataset, cfg.batch_size,
-                    sampler=ShardedSampler(len(dataset), seed=cfg.seed),
+    loader = Loader(dataset, cfg.batch_size // world,
+                    sampler=ShardedSampler(len(dataset), num_shards=world,
+                                           shard=rank, seed=cfg.seed),
                     num_workers=args.num_workers,
                     pin_memory=device.type == "cuda")
     if len(loader) == 0:   # an epoch without a batch would loop forever
         raise SystemExit(f"{len(dataset)} videos with fusion data under "
                          f"{args.fd_root}: fewer than one batch of "
-                         f"{cfg.batch_size}")
+                         f"{cfg.batch_size} over {world} ranks")
 
     attn_state = None
     if args.load_prop:
@@ -102,12 +134,14 @@ def main(argv=None):
     mgr = CheckpointManager(save_dir)
     if args.load_model:
         trainer.load_state_dict(CheckpointManager(args.load_model).restore())
-        print(f"resumed at iteration {trainer.it}", flush=True)
+        if rank == 0:
+            print(f"resumed at iteration {trainer.it}", flush=True)
     elif args.load_network:
         load_reference_pth(trainer.fuse_net, args.load_network)
-        print("loaded network weights", flush=True)
+        if rank == 0:
+            print("loaded network weights", flush=True)
 
-    integrator = Integrator(logger)
+    integrator = Integrator(logger, is_main=rank == 0)
     integrator.add_hook(lambda v: (
         "iou", v.get("hide_iou/i", 0.0) / max(v.get("hide_iou/u", 1.0), 1.0)))
     epoch = trainer.it * cfg.batch_size // len(dataset)
@@ -121,22 +155,25 @@ def main(argv=None):
                 integrator.add_dict(trainer.train_step(batch))
                 it = trainer.it
                 if it % cfg.report_every == 0:
-                    logger.log_metrics("train", "lr", trainer.lr, it)
-                    logger.log_metrics("train", "time_per_iter",
-                                       (time.time() - last_report)
-                                       / cfg.report_every, it)
+                    if logger is not None:
+                        logger.log_metrics("train", "lr", trainer.lr, it)
+                        logger.log_metrics("train", "time_per_iter",
+                                           (time.time() - last_report)
+                                           / cfg.report_every, it)
                     last_report = time.time()
                     integrator.finalize("train", it)
                     integrator.reset_except_hooks()
-                if it % cfg.save_every == 0:
+                if rank == 0 and it % cfg.save_every == 0:
                     mgr.save(it, trainer.state_dict())
             epoch += 1
     finally:
         # Save on exit when meaningfully trained (reference train.py:125-129).
-        if trainer.it > 5000:
+        if rank == 0 and trainer.it > 5000:
             mgr.save(trainer.it, trainer.state_dict())
             save_params(os.path.join(save_dir, f"final_{trainer.it}.pth"),
                         trainer.fuse_net)
+        if world > 1:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

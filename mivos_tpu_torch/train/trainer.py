@@ -1,5 +1,6 @@
-"""Fusion-module trainer on one device (counterpart of
-mivos_tpu/train/trainer.py; reference model/fusion_model.py).
+"""Fusion-module trainer (counterpart of mivos_tpu/train/trainer.py;
+reference model/fusion_model.py), on one device or one rank of a
+data-parallel run.
 
 FusionNet is the only module that learns. The attention reader's
 parameters have requires_grad False and its forward runs under no_grad
@@ -13,7 +14,15 @@ optax.piecewise_constant_schedule's.
 Batches are the loader's NHWC tensors (pinned for the card) or numpy
 arrays; the trainer copies them to its device with non_blocking=True and
 works NCHW.
-Data-parallel training over several GPUs is not ported.
+
+Data parallelism: when a torch.distributed process group is up with
+more than one rank (train/__main__.py under torchrun), FusionNet is
+wrapped in DistributedDataParallel, which averages the gradients over
+the ranks in the backward pass; the frozen reader stays outside it.
+Each rank steps on its own equal share of the batch. The loss is a
+per-sample mean averaged over the batch (train/losses.py), so the
+ranks' mean gradient is the one-process gradient of the whole batch:
+every rank takes the one-process step.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from mivos_tpu_torch.config import TrainConfig
 from mivos_tpu_torch.models.fusion import AttentionReadNetwork, FusionNet
@@ -60,6 +71,14 @@ class FusionTrainer:
         self.device = torch.device(device)
         gen = torch.Generator().manual_seed(cfg.seed)
         self.fuse_net = init_params(FusionNet(), gen).to(self.device).train()
+        # What the step runs: FusionNet, or its DDP wrapper over the ranks
+        # (which shares its parameters; checkpoints hold FusionNet's).
+        self.model: torch.nn.Module = self.fuse_net
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            self.model = DistributedDataParallel(
+                self.fuse_net, device_ids=(None if self.device.type == "cpu"
+                                           else [self.device]))
         attn_net = AttentionReadNetwork()
         if attn_state is None:
             init_params(attn_net, gen)
@@ -96,7 +115,7 @@ class FusionTrainer:
         """One update; returns the metric dict (tensors on the device,
         and the float32 fraction 'p')."""
         b = self.to_device(batch)
-        out = fusion_forward(self.fuse_net, self.attn_net, b)
+        out = fusion_forward(self.model, self.attn_net, b)
         losses = compute_fusion_losses(out, b, self.it, self.start_warm,
                                        self.end_warm)
         self.optimizer.zero_grad(set_to_none=True)

@@ -491,6 +491,31 @@ def test_train_cli_saves_and_resumes(fusion_tree, prop_weights, tmp_path):
         assert r.returncode != 0 and "no CUDA device" in r.stderr
 
 
+def test_train_cli_data_parallel_on_two_cpu_ranks(fusion_tree, tmp_path):
+    """`torchrun --nproc_per_node 2 -m mivos_tpu_torch.train --device cpu`:
+    two gloo ranks of one sample each (batch 2), only rank 0 logging and
+    saving; a batch the ranks do not divide is refused."""
+    im, gt, fd = fusion_tree
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", "-m", "mivos_tpu_torch.train",
+            "--device", "cpu", "--im_root", im, "--gt_root", gt, "--fd_root", fd,
+            "--num_workers", "0", "--save_every", "2", "--report_every", "1",
+            "--save_dir", str(tmp_path / "runs"), "--id", "ddp"]
+    r = subprocess.run(base + ["--batch_size", "2", "--iterations", "2"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    its = [int(x) for x in re.findall(r"^ddp - It +(\d+) \[TRAIN\] \[total_loss",
+                                       r.stdout, re.M)]
+    assert its == [1, 2]     # logged once, by rank 0
+    assert os.listdir(tmp_path / "runs" / "ddp") == ["checkpoint_2.pth"]
+    r = subprocess.run(base + ["--batch_size", "3", "--iterations", "1"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "not divisible" in r.stdout + r.stderr
+
+
 def test_training_entry_points_default_to_the_card():
     import inspect
 
