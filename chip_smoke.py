@@ -41,7 +41,25 @@ Phases (any failure exits non-zero before the final line):
              measured round (frames/s), and one with read_refine=1. The
              launch counters, zeroed just before each of the two paths'
              measured rounds, must equal the reads times each kernel's
-             launches per read (memory_read.launches_per_read).
+             launches per read (memory_read.launches_per_read). Then one
+             bf16 round with the slim decoder (dec_width=0.5, random
+             init, no fusion) after a warm round, frames/s beside width
+             1.0's, launches zeroed just before it ("slim").
+  4b. long_video  long_video_bench.run_limit, its first LONG_ROUNDS
+             rounds: 960 uint8 frames 480x854, K = 2, bf16, mem_freq=1,
+             bank_cap_frames=512, the interaction on frame 0; the
+             query cache off by its byte cap; the forward pass's commits
+             thinned to every 2nd frame, the bank within the cap; labels
+             (960, 480, 854) <= K; launch counters, zeroed before round
+             1, equal to its reads times the launches per read; seconds
+             per round, frames/s, peak GiB, committed slots and M. Then
+             the gate of phase 2 at the M of its largest read (K = 2,
+             N = 1620, no invalid slots, laid out as the bank's live
+             prefix, fp32 and bf16) on a random-init fp32 encoder's
+             banks over ceil(M / 1620) synthetic frames made on the card
+             (synthetic_frames_dev), the references one object at a time
+             (a dense fp32 affinity of one object is 5 GB there), and
+             each kernel's CUDA-event ms at that M beside its bound.
   5. s2m     S2MController.interact at 480x854, bf16, hard aggregate:
              CUDA-event latency for K = 1, 2, 3, cuDNN autotune off
              with deterministic plans (as in the davis phase) and
@@ -127,7 +145,7 @@ Phases (any failure exits non-zero before the final line):
              equal labels. Prints S2M and click ms and each
              propagation's seconds.
  11. fusion_gen  python -m mivos_tpu_torch.generate_fusion's main() in
-             process on a DAVIS-layout tree of three 40-frame 480x854
+             process on a DAVIS-layout tree of three 30-frame 480x854
              JPEG videos with palette PNG annotations, K = 2, 3 and 0
              (no usable object), --separation 10, bf16, the random-init
              full-width PropagationNetwork saved as a reference-named
@@ -155,7 +173,7 @@ Phases (any failure exits non-zero before the final line):
              weights within 1e-6), and a checkpoint round trip (save,
              restore into a fresh trainer, one step on both: equal
              weights); the step alone (no loader worker running) and
-             under the profiler; the loader alone, batches/s over 24
+             under the profiler; the loader alone, batches/s over 12
              batches past the 16 its workers queue at the start; then
              `python -m mivos_tpu_torch.train
              --iterations 3` in a subprocess (exit 0, its checkpoint
@@ -191,8 +209,25 @@ Phases (any failure exits non-zero before the final line):
              pretrained prop weights: 24 videos of 12 frames at 384x384,
              separation 4, generate_fusion in fp32 (launch counters,
              zeroed just before, equal to its reads times the fp32 launches
-             per read), 100 iterations at batch 12 with the loss
+             per read), 30 iterations at batch 12 with the loss
              descending; its seconds, PNG share and losses.
+ 13b. accuracy  on the pretrain phase's weights, deterministic cuDNN
+             plans: python -m mivos_tpu_torch.accuracy_envelope in
+             process (prop and fusion .pth; fast: bf16 and the kernels,
+             exact: fp32, TF32 off, the exact read; 30 frames 480x854,
+             K = 3, 2 rounds) with its JAX gates (margin-conditioned
+             agreement > 0.995, max probability error < 0.05), launch
+             counters equal to the fast session's reads, then
+             envelope_diagnose on its dump; python -m
+             mivos_tpu_torch.full_protocol in process (prop and S2M
+             .pth, fusion off, 2 sequences of 40 frames 480x854, K = 2,
+             8 rounds): the bf16 fast path against the exact path,
+             rounds inside 240 s, J&F in [0, 1], launch counters,
+             zeroed just before, equal to the fast path's reads
+             (counted at each interact) times the launches per read;
+             max per-round |dJ&F| reported against the JAX bound 0.01,
+             not held: on these weights JAX's own fast path crosses it
+             too (scripts/torch_protocol_witness.sh, PERF.md).
  14. multichip  the multi-device paths, on distinct cards where the host
              has as many as a mesh has positions, else on meshes that
              repeat cuda:0 (printed): (1) the bank-sharded exact read on
@@ -223,11 +258,15 @@ The line before the last is {"kernels": [...]}, one entry per kernel
 family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds, the
 davis run, serve, gui, fusion_gen, the pretrain phase's held-out
-session and the multichip phase's bf16 object-sharded and 2D rounds;
-fp32: the session's fp32 rounds, the pretrain phase's generate_fusion
-and the multichip phase's fp32 object-sharded rounds), "max_abs_err" is the worst of the gates of its bank
-dtype (random-init and pretrained banks), "ms",
-"plain_ms" and "bound_ms" are at M = 21060. The last line is
+session, the multichip phase's bf16 object-sharded and 2D rounds, the
+long video, the envelope's fast session, the full protocol's fast path
+and the slim round;
+fp32: the session's fp32 rounds, the pretrain phase's generate_fusion,
+the multichip phase's fp32 object-sharded rounds and the read-only full
+protocol), "max_abs_err" is the worst of the gates of its bank
+dtype (random-init, pretrained and long-video banks), "ms",
+"plain_ms" and "bound_ms" are at M = 21060, and "long_M" holds the
+kernel's ms and bound at the long video's M. The last line is
 {"ok": true, "device": {...}}.
 """
 import contextlib
@@ -246,7 +285,8 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from mivos_tpu_torch import (generate_fusion, pretrain_synthetic,
+from mivos_tpu_torch import (accuracy_envelope, envelope_diagnose, full_protocol,
+                             generate_fusion, long_video_bench, pretrain_synthetic,
                              train_fusion_synthetic)
 from mivos_tpu_torch.checkpoint.manager import CheckpointManager, save_params
 from mivos_tpu_torch.checkpoint.pth import (attention_read_state_dict,
@@ -318,7 +358,11 @@ HELD_OUT_SEED, HELD_T, HELD_K = 777, 20, 2   # outside every training seed
 # Fusion on synthetic data: 24 videos (the JAX script's default) of 12
 # frames at 384x384, two batches an epoch (one sample per video an
 # epoch; the loader starts its workers anew each epoch).
-FS_VIDEOS, FS_FRAMES, FS_HW, FS_SEPARATION, FS_ITERS, FS_REPORT = 24, 12, 384, 4, 100, 10
+FS_VIDEOS, FS_FRAMES, FS_HW, FS_SEPARATION, FS_ITERS, FS_REPORT = 24, 12, 384, 4, 30, 10
+# The long video (long_video_bench --limit): its first LONG_ROUNDS rounds
+# of three (the first reaches the bank's largest M); K = 2, N = 1620, the gate at its largest read's M.
+LONG_ROUNDS, LONG_K = 2, 2
+SLIM_WIDTH = 0.5   # the JAX package's opt-in slim decoder (scripts/slim_decoder_bench.py)
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
 # The Pallas code each phase's kernels replace: the three pallas_calls'
 # kernels, and the split of fp32 key tiles in `_affinity` that the
@@ -456,20 +500,30 @@ def shared_threshold(st_a, st_b):
     return st
 
 
-def gate_read(mk, mv, q, valid):
+def gate_read(mk, mv, q, valid, per_object=False):
     """Hold the read of one bank against its references: the whole read
     (n_refine 0 and 1) against its plain version (mean <= 1e-4 of the
     readout scale) and the exact torch.topk read (mean < 1e-3, max < 0.3
     of the scale), then each kernel alone against its plain phase on the
-    same inputs (the readout on shared_threshold's stats). Returns the
-    whole-read reports and the per-kernel one."""
-    exact = memory_read(mk, mv, q, top_k=TOP_K, valid=valid, backend="exact")
+    same inputs (the readout on shared_threshold's stats). per_object:
+    the kernels read all K objects at once and the references, whose
+    dense (K, N, M) fp32 affinity would not fit at a long video's M, one
+    object at a time. Returns the whole-read reports and the per-kernel
+    one."""
+    objs = ([slice(j, j + 1) for j in range(mk.shape[0])] if per_object
+            else [slice(None)])
+
+    def by_object(fn):
+        return torch.cat([fn(o) for o in objs])
+
+    exact = by_object(lambda o: memory_read(mk[o], mv[o], q, top_k=TOP_K,
+                                            valid=valid, backend="exact"))
     scale = exact.abs().mean().item()
     reps = []
     for n_refine in (0, 1):
         out = cmr.memory_read_threshold_cuda(mk, mv, q, TOP_K, valid, n_refine)
-        plain = cmr.memory_read_threshold_plain(mk, mv, q, TOP_K, valid,
-                                                n_refine)
+        plain = by_object(lambda o: cmr.memory_read_threshold_plain(
+            mk[o], mv[o], q, TOP_K, valid, n_refine))
         rep = {"regime": "encoder", "K": mk.shape[0], "M": mk.shape[1],
                "dtype": str(mk.dtype)[6:], "n_refine": n_refine,
                "readout_scale": scale,
@@ -485,15 +539,20 @@ def gate_read(mk, mv, q, valid):
     del exact, out, plain
     rq = cmr.read_query(q)
     mask = cmr.additive_mask(valid)
-    aff = cmr.read_affinity(rq, mk, mask)
     planes = None if mk.dtype == BF16 else cmr.bank_planes_cuda(mk, mv)
     st_k = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
-    st_p = cmr.candidates_plain(aff, TOP_K)
     ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K, planes)
-    ref_p = cmr.refine_plain(aff, st_k, TOP_K)
+    st_p, ref_p = [], []
+    for o in objs:
+        aff = cmr.read_affinity(rq, mk[o], mask)
+        st_p.append(cmr.candidates_plain(aff, TOP_K))
+        ref_p.append(cmr.refine_plain(aff, st_k[o], TOP_K))
+        del aff
+    st_p, ref_p = torch.cat(st_p), torch.cat(ref_p)
     st = shared_threshold(st_k, st_p)
     out_k = cmr.readout_cuda(rq, mk, mv, mask, st, planes)
-    out_p = cmr.readout_plain(aff, mv, st)
+    out_p = by_object(lambda o: cmr.readout_plain(cmr.read_affinity(rq, mk[o], mask),
+                                                  mv[o], st[o]))
     errs = {"candidates": (st_k - st_p).abs().max().item(),
             "refine": (ref_k - ref_p).abs().max().item(),
             "readout": (out_k - out_p).abs().max().item()}
@@ -709,6 +768,121 @@ def phase_gate_davis(banks, shapes, path="davis"):
     return errs
 
 
+def synthetic_frames_dev(seed, t, h, w, k, dev):
+    """synthetic_video's construction, made on the card one frame at a
+    time (a long video's frames would take minutes in numpy), the
+    ellipses wrapping round the frame edges so that they stay in view:
+    yields each normalized (h, w, 3) frame and its (h, w) labels."""
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=F32, device=dev),
+                            torch.arange(w, dtype=F32, device=dev), indexing="ij")
+    colours = rand(k + 1, 3)
+    hw = torch.tensor([h, w], dtype=F32, device=dev)
+    centre = rand(k, 2) * hw
+    vel = torch.randn((k, 2), generator=gen, device=dev) * 4.0
+    radii = 40.0 + 100.0 * rand(k, 2)
+    bg = 0.2 * torch.sin(yy[..., None] / (5.0 + 25.0 * rand(3))
+                         + xx[..., None] / (5.0 + 25.0 * rand(3)))
+    mean = torch.tensor(MEAN, dtype=F32, device=dev)
+    std = torch.tensor(STD, dtype=F32, device=dev)
+    for i in range(t):
+        labels = torch.zeros((h, w), dtype=torch.int64, device=dev)
+        for o in range(k):
+            cy, cx = torch.remainder(centre[o] + vel[o] * i, hw)
+            inside = ((yy - cy) / radii[o, 0]) ** 2 + ((xx - cx) / radii[o, 1]) ** 2 <= 1.0
+            labels[inside] = o + 1
+        img = colours[labels] + bg + 0.05 * torch.randn((h, w, 3), generator=gen, device=dev)
+        yield (img - mean) / std, labels
+
+
+def long_gate_banks(dev, m):
+    """gate_banks at a long video's M: the random-init fp32 encoder's
+    banks over ceil(M / N) synthetic 480p frames (synthetic_frames_dev),
+    K = LONG_K, and the query key of the next frame."""
+    net = init_params(PropagationNetwork(top_k=TOP_K),
+                      torch.Generator().manual_seed(0)).to(dev).eval()
+    n16 = (-(-RH // 16)) * (-(-RW // 16))
+    frames = -(-m // n16)
+    mk = torch.empty((LONG_K, frames * n16, cmr.CK), dtype=F32, device=dev)
+    mv = torch.empty((LONG_K, frames * n16, cmr.CV), dtype=F32, device=dev)
+    with torch.no_grad():
+        for t, (frame, labels) in enumerate(synthetic_frames_dev(7, frames + 1, RH, RW,
+                                                                 LONG_K, dev)):
+            frame = pad_divide_by(frame)[0]
+            if t == frames:
+                k16 = net.get_query_values(frame)[3]
+                break
+            masks = pad_divide_by(one_hot_mask(labels, LONG_K))[0]
+            mk[:, t * n16:(t + 1) * n16], mv[:, t * n16:(t + 1) * n16] = net.memorize(frame, masks)
+    return mk, mv, k16[0].flatten(1).t().contiguous()
+
+
+def long_timing(mk, mv, q, dtype):
+    """CUDA-event ms of each kernel wrapper (kernel and merge; on fp32
+    banks on the read's planes, and the planes) and of the whole kernel
+    read on one long bank (no invalid slots, as the session reads it),
+    beside bound_ms."""
+    m, k, n = mk.shape[1], mk.shape[0], q.shape[0]
+    rq = cmr.read_query(q)
+    planes = None if dtype == BF16 else cmr.bank_planes_cuda(mk, mv)
+    st = cmr.candidates_cuda(rq, mk, None, TOP_K, planes)
+    ms = {"candidates": cuda_ms(lambda: cmr.candidates_cuda(rq, mk, None, TOP_K, planes), 5, 1),
+          "refine": cuda_ms(lambda: cmr.refine_cuda(rq, mk, None, st, TOP_K, planes), 5, 1),
+          "readout": cuda_ms(lambda: cmr.readout_cuda(rq, mk, mv, None, st, planes), 5, 1)}
+    if dtype == F32:
+        ms["hilo_planes"] = cuda_ms(lambda: cmr.bank_planes_cuda(mk, mv), 5, 1)
+    bounds = {name: bound_ms(name, k, n, m, dtype) for name in ms}
+    rep = {"timing_long": str(dtype)[6:], "K": k, "N": n, "M": m, "kernel_ms": ms,
+           "bound_ms": {name: b[0] for name, b in bounds.items()},
+           "bound_by": {name: b[1] for name, b in bounds.items()},
+           "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms},
+           "kernel_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
+               mk, mv, q, TOP_K, None), 5, 1)}
+    log(json.dumps(rep))
+    return rep
+
+
+def phase_long_video(dev):
+    """The 960-frame session at the bank's frame cap
+    (long_video_bench.run_limit, its first LONG_ROUNDS rounds; it zeroes
+    the launch counters before round 1 and holds them to the reads), then
+    the gate, per object, and the kernel times at the M of its largest
+    read, fp32 and bf16 banks. Returns its launch counts, each kernel's
+    worst gate error and the long-M timings."""
+    t0 = time.perf_counter()
+    prop = long_video_bench.make_net(dev, BF16)
+    with cudnn_mode(benchmark=True):
+        rep = long_video_bench.run_limit(prop, dev, rounds=LONG_ROUNDS, log=log)
+    counts = cmr.launch_counts()
+    for c in ("candidates_bf16", "readout_bf16"):
+        check(counts[c] > 0, f"{c} never launched on the long video")
+    rep["session_s"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "long_video", **rep}))
+    del prop
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    m = rep["max_read_M"]
+    mk_all, mv_all, q = long_gate_banks(dev, m)
+    kernel_reps, timing = [], {}
+    for dtype in (F32, BF16):
+        mk, mv = bank_prefix(mk_all, LONG_K, m, dtype), bank_prefix(mv_all, LONG_K, m, dtype)
+        reps, kernel_rep = gate_read(mk, mv, q, None, per_object=True)
+        for r in reps + [kernel_rep]:
+            log(json.dumps(dict(r, banks="random-init long video")))
+        kernel_reps.append(kernel_rep)
+        timing[dtype] = long_timing(mk, mv, q, dtype)
+        del mk, mv
+        torch.cuda.empty_cache()
+    errs = worst_errs(kernel_reps)
+    log(json.dumps({"long_gate_per_kernel_max_abs_err": errs, "M": m,
+                    "gate_s": time.perf_counter() - t1}))
+    return counts, errs, timing, m
+
+
 def make_nets(dev, dtype, read_backend="auto", seed=0):
 
     gen = torch.Generator().manual_seed(seed)
@@ -856,7 +1030,27 @@ def phase_session(dev):
     log(json.dumps({"metric": "propagation_fps_480p_3obj", "median": med,
                     "rounds": fps, "reads": total_reads,
                     "launches": counts}))
-    return counts, session_f32(dev, images, masks, mem)
+    f32_counts = session_f32(dev, images, masks, mem)
+    return counts, f32_counts, session_slim(dev, images, masks, mem, fps)
+
+
+def session_slim(dev, images, masks, mem, width1_fps):
+    """One bf16 round of the bench protocol with the slim decoder
+    (dec_width=SLIM_WIDTH, random init, no fusion) after a warm round, as
+    scripts/slim_decoder_bench.py compares it: frames/s beside width
+    1.0's rounds. Returns its launch counts, zeroed just before it."""
+    prop = init_params(PropagationNetwork(top_k=TOP_K, dtype=BF16, dec_width=SLIM_WIDTH),
+                       torch.Generator().manual_seed(0)).to(dev)
+    warm = InferenceCore(prop, None, images, K, mem=mem, device=dev)
+    run_round(warm, masks[7], 0, cmr.launch_counts())
+    del warm
+    cmr.reset_launch_counts()   # the slim path's launches start here
+    core = InferenceCore(prop, None, images, K, mem=mem, device=dev)
+    dt, reads, counts = run_round(core, masks[0], 0, cmr.launch_counts())
+    log(json.dumps({"metric": "propagation_fps_480p_3obj_slim", "dec_width": SLIM_WIDTH,
+                    "frames_s": (T - 1) / dt, "round_s": dt, "reads": reads,
+                    "width_1_frames_s": width1_fps, "launches": counts}))
+    return counts
 
 
 def session_f32(dev, images, masks, mem):
@@ -2481,6 +2675,83 @@ def phase_pretrain(dev, tmp):
     return {"session": session_counts, "fusion_gen": fusion_counts}, errs
 
 
+def phase_accuracy(dev, tmp):
+    """The accuracy paths on the pretrain phase's weights: (1) python -m
+    mivos_tpu_torch.accuracy_envelope in process on its prop .pth and
+    fusion .pth (fast: bf16 and the kernels; exact: fp32, TF32 off, the
+    exact read; 30 frames 480x854, K = 3, 2 rounds), its JAX gates, then
+    envelope_diagnose on its dump; (2) python -m
+    mivos_tpu_torch.full_protocol in process on its prop and S2M .pth,
+    fusion off (2 sequences of 40 frames 480x854, K = 2, 8 rounds): the
+    JAX timing gate held, J&F in [0, 1], the |dJ&F| bound's verdict
+    reported. Launch counters, zeroed before each, equal each path's
+    reads times the launches per read. Returns the envelope's and the
+    protocol's counts."""
+    out = os.path.join(tmp, "weights")
+    fusion = os.path.join(out, "fusion_synthetic.pth")
+    argv = ["--weights", pretrain_synthetic.checkpoint_path(out, "prop"),
+            "--device", str(dev), "--dump-dir", tmp]
+    if os.path.exists(fusion):
+        argv += ["--fusion-weights", fusion]
+    t0 = time.perf_counter()
+    cmr.reset_launch_counts()   # the envelope's launches start here
+    rep = accuracy_envelope.envelope(accuracy_envelope.parse_args(argv), log=log)
+    env_counts = cmr.launch_counts()
+    reads = 2 * accuracy_envelope.T - 3   # frames 1..T-1, then T-2..1
+    check(env_counts == {name: n * reads for name, n in cmr.launches_per_read(BF16, 0).items()},
+          f"envelope launches {env_counts} for {reads} reads")
+    rep["wall_s"] = time.perf_counter() - t0
+    log(json.dumps({"envelope": rep}))
+    accuracy_envelope.check_gates(rep)
+    envelope_diagnose.main([rep["dump"], "--out", os.path.join(tmp, "envelope_diagnosis.json")])
+
+    t0 = time.perf_counter()
+    reads = {}
+    with counted_reads(reads):
+        cmr.reset_launch_counts()   # the protocol's launches start here
+        prep = full_protocol.protocol(full_protocol.parse_args(
+            ["--weights", out, "--fusion", "off", "--device", str(dev),
+             "--out", os.path.join(tmp, "full_protocol.json")]), log=log)
+        counts = cmr.launch_counts()
+    check(sorted(reads) == ["auto", "exact"] and reads["auto"] > 0,
+          f"full protocol reads {reads}")
+    check(counts == {c: n * reads["auto"] for c, n in cmr.launches_per_read(BF16, 0).items()},
+          f"full protocol launches {counts} for {reads['auto']} reads")
+    log(json.dumps({"full_protocol": {
+        "fusion": prep["fusion"], "max_round_jf_delta": prep["max_round_jf_delta"],
+        "within_jax_bound": prep["max_round_jf_delta"] < full_protocol.JF_DELTA_MAX,
+        "per_round_jf_delta": prep["per_round_jf_delta"],
+        "auc": {t: prep[t]["summary"]["auc"] for t in ("fast", "exact")},
+        "per_round_s": {t: prep[t]["per_round_s"] for t in ("fast", "exact")},
+        "records": {t: prep[t]["summary"]["records"] for t in ("fast", "exact")},
+        "reads": reads, "wall_s": time.perf_counter() - t0}}))
+    full_protocol.check_timing(prep)
+    check(all(0.0 <= jf <= 1.0 for t in ("fast", "exact")
+              for recs in prep[t]["summary"]["records"].values() for _, jf in recs),
+          "full protocol: J&F outside [0, 1]")
+    # The |dJ&F| bound is reported, not held: on weights of this recipe
+    # (J&F 0.1-0.3) JAX's own fast path crosses it as well (PERF.md).
+    return env_counts, counts
+
+
+@contextlib.contextmanager
+def counted_reads(reads):
+    """Wrap InferenceCore.interact for the duration: add the memory reads
+    each call makes to reads[its net's read backend]."""
+    orig = InferenceCore.interact
+
+    def interact(self, mask, idx):
+        backend = self.prop_net.read_backend
+        reads[backend] = reads.get(backend, 0) + expected_reads(self, idx)
+        return orig(self, mask, idx)
+
+    InferenceCore.interact = interact
+    try:
+        yield
+    finally:
+        InferenceCore.interact = orig
+
+
 # ----------------------------------------------------------------------
 # multichip: sharded reads and sessions on a device mesh, data-parallel
 # training over ranks, the dry run.
@@ -2826,8 +3097,12 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with cudnn_mode(benchmark=True):   # the bench protocol's setting
-        launches_bf16, launches_f32 = phase_session(dev)
+        launches_bf16, launches_f32, slim_launches = phase_session(dev)
     log(f"session phase: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    long_launches, long_errs, long_timing_by_dtype, long_m = phase_long_video(dev)
+    log(f"long_video phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_s2m(dev)
@@ -2874,6 +3149,11 @@ def main():
             t0 = time.perf_counter()
             pretrain_launches, pretrain_errs = phase_pretrain(dev, tmp)
             log(f"pretrain phase: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with cudnn_mode(benchmark=False, deterministic=True):
+                envelope_launches, protocol_launches = phase_accuracy(dev, tmp)
+            log(f"accuracy phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     mc_object_fp32, mc_launches = phase_multichip(dev)
@@ -2885,7 +3165,9 @@ def main():
                   "fusion_gen": fusion_gen_launches,
                   "pretrain_session": pretrain_launches["session"],
                   "object_session": mc_launches["object"],
-                  "session_2d": mc_launches["2d"]} if dtype == BF16
+                  "session_2d": mc_launches["2d"], "long_video": long_launches,
+                  "envelope": envelope_launches, "full_protocol": protocol_launches,
+                  "slim": slim_launches} if dtype == BF16
                  else {"session_fp32": launches_f32,
                        "pretrain_fusion_gen": pretrain_launches["fusion_gen"],
                        "object_session_fp32": mc_object_fp32})
@@ -2894,18 +3176,22 @@ def main():
         for c in counters:   # the session paths run every kernel (davis: no refine)
             check(session[c] > 0, f"{c} never launched on the session path")
         at = timing[dtype][TIMING_M[-1]]
+        long_at = long_timing_by_dtype[dtype]
         kernels.append({
             "name": name, "route": "cuda", "source": SRC,
             "replaces": REPLACES[phase], "bank": str(dtype)[6:],
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": max(e[str(dtype)[6:]][phase]
                                for e in (errs, davis_errs, fusion_gen_errs,
-                                         pretrain_errs)),
+                                         pretrain_errs, long_errs)),
             "ms": at["kernel_ms"][phase], "plain_ms": at["plain_ms"][phase],
             "bound_ms": at["bound_ms"][phase], "bound_by": at["bound_by"][phase],
             "library_ms": None,   # no PyTorch call computes a thresholded top-k read
             "ms_by_M": {m: timing[dtype][m]["kernel_ms"][phase] for m in TIMING_M},
-            "bound_ms_by_M": {m: timing[dtype][m]["bound_ms"][phase] for m in TIMING_M}})
+            "bound_ms_by_M": {m: timing[dtype][m]["bound_ms"][phase] for m in TIMING_M},
+            "long_M": {"K": LONG_K, "M": long_m, "ms": long_at["kernel_ms"][phase],
+                       "bound_ms": long_at["bound_ms"][phase],
+                       "bound_by": long_at["bound_by"][phase]}})
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

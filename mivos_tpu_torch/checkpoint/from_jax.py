@@ -18,7 +18,11 @@ table of its own (`fbrs_state_dict_from_flax`, the inverse of
 has FBRSHRNetModel (`fbrs_hrnet_state_dict_from_flax`, the inverse of
 `convert_fbrs_hrnet`, :228-278). The
 port's module names are the reference's, so the result loads with
-strict=True and feeds straight back into convert.py. Operates on numpy
+strict=True and feeds straight back into convert.py. Shapes come from
+the tree, so a slim decoder (`dec_width=0.5`) maps as the reference one
+does, into a PropagationNetwork built with the same dec_width; a bare
+ResNet50 tree (`stem_bias` included) maps with
+`resnet_state_dict_from_flax`. Operates on numpy
 arrays; no jax import.
 """
 from __future__ import annotations
@@ -187,3 +191,11 @@ def fbrs_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 def fbrs_hrnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax tree of FBRSHRNetModel -> the port's state_dict."""
     return state_dict_from_flax(params, _FBRS_HRNET_RULES)
+
+
+def resnet_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax tree of a bare ResNet50 (mivos_tpu/models/resnet.py) -> the
+    state_dict of the port's ResNet50 with layer1_name="layer1"."""
+    tree = params.get("params", params)
+    sd = state_dict_from_flax({"net": tree}, _RESNET_RULES)   # the rules key on a parent
+    return {name[len("net."):]: val for name, val in sd.items()}

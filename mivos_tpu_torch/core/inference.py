@@ -8,11 +8,21 @@ frame's cached query features, soft aggregation, memorize into the
 bank, and for passes that run into an earlier interaction,
 difference-aware fusion.
 
-Query features are pre-encoded in windows of 16 consecutive frames
+Query cache (MemoryConfig `cache_queries`, `query_cache_bytes`): the
+session keeps every frame's query features on the device for later
+passes while the video fits the byte cap, as the JAX session decides it
+(`_qcache_enabled`: the video's length rounded up to a time bucket,
+times one frame's skip8, skip4, k16 and v16 in the compute dtype, their
+decoder channels following `dec_width`). With the cache on, a pass's
+uncached frames are encoded first in windows of 16 consecutive frames
 (`get_query_values_batched`: the RGB tower, the key/value heads and the
-decoder's object-independent skip towers at batch 16) before the pass,
-and each frame then decodes with preskip=True -- the JAX default
-(qcache_eager=True).
+decoder's object-independent skip towers at batch 16), and each frame
+then decodes with preskip=True -- the JAX default (qcache_eager=True;
+the lazy policy, which encoded round 1 inside the scan, is not ported).
+With the cache off (a long video: about 22 MB a 480p frame in bf16)
+each frame of a pass encodes its own features at batch 1 and decodes
+with preskip=False, as the JAX scan's 'compute' mode does, and nothing
+is kept for the next pass.
 
 Progress hooks (`interact(..., total_cb, step_cb, chunk_cb)`): the pass
 length up front, a step after each frame, and each chunk of a pass's
@@ -48,13 +58,14 @@ import torch
 from mivos_tpu_torch.config import MemoryConfig
 from mivos_tpu_torch.core.memory_bank import MemoryBank
 from mivos_tpu_torch.models.fusion import FusionNet
-from mivos_tpu_torch.models.propagation import (PropagationNetwork,
+from mivos_tpu_torch.models.propagation import (Decoder, PropagationNetwork,
                                                 compute_others)
 from mivos_tpu_torch.ops.aggregate import aggregate_wbg
 from mivos_tpu_torch.parallel.mesh import Mesh, device_scope
 from mivos_tpu_torch.parallel.sharded_memory import lead_positions
 from mivos_tpu_torch.utils.tensor import (cast_params_bf16, compute_pad,
-                                          pad_divide_by, unpad)
+                                          next_bucket, pad_divide_by,
+                                          time_buckets, unpad)
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -208,7 +219,14 @@ class InferenceCore:
         self.pos_diff: Optional[torch.Tensor] = None   # (K, 1, nh, nw)
         self.neg_diff: Optional[torch.Tensor] = None
         # Query cache (skip8, skip4, k16, v16), each (T, C, h, w) in the
-        # compute dtype; filled in batched windows before each pass.
+        # compute dtype; filled in batched windows before each pass, when
+        # the video fits query_cache_bytes (the JAX session's decision,
+        # mivos_tpu/core/inference.py:446-452).
+        self.t_bucket = next_bucket(self.t, time_buckets())
+        per_frame = self.prop_net.dtype.itemsize * sum(
+            (self.nh // s) * (self.nw // s) * c for s, c in self._QDIMS)
+        self._qcache_enabled = (mem.cache_queries and
+                                self.t_bucket * per_frame <= mem.query_cache_bytes)
         self._qcache: Optional[Tuple[torch.Tensor, ...]] = None
         self._qcached = np.zeros(self.t, bool)
         self.shards = self._object_shards()
@@ -283,13 +301,18 @@ class InferenceCore:
 
     # ----- passes -----
 
-    def _effective_mem_freq(self, pass_len: int, num_certain: int) -> int:
+    def _effective_mem_freq(self, pass_len: int, num_certain: int,
+                            scan: bool = True) -> int:
         """Commit interval for one pass, thinned when the mem_freq
-        schedule would not fit bank_cap_frames (the per-frame loop's
-        capacity: the certain memory and one transient slot)."""
+        schedule would not fit bank_cap_frames, as the JAX session thins
+        it (mivos_tpu/core/inference.py:616-642): the capacity less the
+        certain memory, the transient slot and, on the JAX scan path
+        (a pass without step_cb), the scratch slot its padded steps
+        write to. The port's bank needs no scratch slot, but leaves it
+        free so that a pass commits the frames the JAX session commits."""
         if pass_len <= 0:
             return self.mem.mem_freq
-        avail = self.mem.bank_cap_frames - num_certain - 1
+        avail = self.mem.bank_cap_frames - num_certain - (2 if scan else 1)
         if avail < 1:
             raise ValueError(
                 f"certain memory ({num_certain} frames) leaves no bank "
@@ -320,6 +343,16 @@ class InferenceCore:
         nr = abs(tr - ti) / abs(tc - tr)
         return torch.tensor([[nc, nr]], dtype=torch.float32,
                             device=self.device).expand(self.k, 2)
+
+    @property
+    def _QDIMS(self) -> Tuple[Tuple[int, int], ...]:
+        """(stride, channels) of one frame's cached query tensors: the
+        decoder's skip towers skip8 and skip4 (their channels follow
+        dec_width) and the query key and value (JAX `_QDIMS`,
+        mivos_tpu/core/inference.py:823-831)."""
+        width = self.prop_net.dec_width
+        return ((8, Decoder.chan(512, width)), (4, Decoder.chan(256, width)),
+                (16, 128), (16, 512))
 
     def _precompute_queries(self, frames: List[int]) -> None:
         """Encode every uncached frame of the pass in windows of
@@ -392,11 +425,13 @@ class InferenceCore:
         if not frames:
             return closest_ti
         end = frames[-1]
-        mem_freq = self._effective_mem_freq(len(frames), num_certain)
+        mem_freq = self._effective_mem_freq(len(frames), num_certain,
+                                            scan=step_cb is None)
         total_m = (len(frames) - 1) // mem_freq + 1 + num_certain
         do_fuse = (closest_ti not in (self.t, -1)) and self.fuse_net is not None
 
-        self._precompute_queries(frames)
+        if self._qcache_enabled:
+            self._precompute_queries(frames)
         for sh in self.shards:
             sh.bank.reset(total_m, sh.certain_k, sh.certain_v)
         m_front, last_ti, prev_in_mem = num_certain, idx, True
@@ -406,7 +441,11 @@ class InferenceCore:
                       if chunk_cb is not None else [])
         c0, pending = 0, None
         for j, ti in enumerate(frames):
-            skip8, skip4, k16, v16 = (c[ti:ti + 1] for c in self._qcache)
+            if self._qcache_enabled:
+                skip8, skip4, k16, v16 = (c[ti:ti + 1] for c in self._qcache)
+            else:   # the skip towers run inside the decode (preskip=False)
+                _, skip8, skip4, k16, v16 = self.prop_net.get_query_values(
+                    self.get_image(ti))
             readouts = self.prop_net.read_memory(
                 *self._live(include_transient=not prev_in_mem), None, k16,
                 gather=False)
@@ -416,7 +455,8 @@ class InferenceCore:
                     probs.append(torch.sigmoid(sh.net.decode(
                         readout, *(f.to(sh.device, non_blocking=True)
                                    for f in (skip8, skip4, v16)),
-                        preskip=True)).to(self.device, non_blocking=True))
+                        preskip=self._qcache_enabled)).to(self.device,
+                                                          non_blocking=True))
             prob = probs[0] if len(probs) == 1 else torch.cat(probs)
             agg = aggregate_wbg(prob.movedim(-1, 1), keep_bg=True)
             # Memorize the pre-fusion aggregate (reference

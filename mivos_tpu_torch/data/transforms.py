@@ -1,6 +1,12 @@
-"""Host-side image transforms (counterpart of the parts of
-mivos_tpu/data/transforms.py that the DAVIS evaluation, the GUI session
-and fusion training use).
+"""Host-side image transforms (counterpart of
+mivos_tpu/data/transforms.py).
+
+`resize` is cv2.resize's INTER_NEAREST, INTER_CUBIC and INTER_AREA
+without cv2 (the flags keep cv2's values): nearest picks cv2's source
+pixels; cubic (a = -0.75) and area weigh the same source pixels with the
+same weights as cv2, in float64, where cv2 works in fixed point on uint8
+images, so a uint8 result may differ from cv2's by one level
+(tests/test_torch_data_extras.py).
 
 NHWC numpy, explicit RNG: one sample's random augmentation is drawn
 once into an `AugParams` and applied to every stream of the sample, so
@@ -11,7 +17,7 @@ gives the JAX package's arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -103,3 +109,106 @@ def apply_color_jitter(img: np.ndarray, p: AugParams) -> np.ndarray:
         hsv[..., 0] = (hsv[..., 0] + p.hue * 360.0) % 360.0
         img = cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
     return img
+
+
+INTER_NEAREST, INTER_CUBIC, INTER_AREA = 0, 2, 3   # cv2's flag values
+_CUBIC_A = -0.75
+
+
+def _cubic_taps(src: int, dst: int):
+    """cv2's bicubic taps of one axis: 4 source indices a destination
+    pixel (clamped: the border replicates) and their weights."""
+    scale = src / dst
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32).astype(np.float64)
+    sx = np.floor(f)
+    x = f - sx
+    a = _CUBIC_A
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    w = np.stack([c0, c1, c2, 1.0 - c0 - c1 - c2], axis=1)
+    idx = sx[:, None].astype(np.int64) + np.arange(-1, 3)[None]
+    return np.clip(idx, 0, src - 1), w
+
+
+def _area_taps(src: int, dst: int):
+    """cv2's INTER_AREA taps of one axis. Shrinking: each destination
+    pixel averages the source cells it covers, partial cells by their
+    covered share (cv2 computeResizeAreaTab). Enlarging: a linear blend
+    of two neighbours at cv2's area offset."""
+    scale = src / dst
+    if scale >= 1.0:
+        rows = []
+        for dx in range(dst):
+            fs1 = dx * scale
+            fs2 = fs1 + scale
+            cell = min(scale, src - fs1)
+            s2 = min(int(np.floor(fs2)), src - 1)
+            s1 = min(int(np.ceil(fs1)), s2)
+            taps = []
+            if s1 - fs1 > 1e-3:
+                taps.append((s1 - 1, (s1 - fs1) / cell))
+            taps += [(sx, 1.0 / cell) for sx in range(s1, s2)]
+            if fs2 - s2 > 1e-3:
+                taps.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+            rows.append(taps)
+        n = max(len(r) for r in rows)
+        idx = np.zeros((dst, n), np.int64)
+        w = np.zeros((dst, n))
+        for dx, taps in enumerate(rows):
+            for j, (sx, wt) in enumerate(taps):
+                idx[dx, j], w[dx, j] = sx, wt
+        return idx, w
+    inv = dst / src
+    sx = np.floor(np.arange(dst) * scale).astype(np.int64)
+    fx = (np.arange(dst) + 1) - (sx + 1) * inv
+    fx = np.where(fx <= 0, 0.0, fx - np.floor(fx))
+    fx = np.where(sx >= src - 1, 0.0, fx)
+    sx = np.minimum(sx, src - 1)
+    idx = np.stack([sx, np.minimum(sx + 1, src - 1)], axis=1)
+    return idx, np.stack([1.0 - fx, fx], axis=1)
+
+
+def resize(img: np.ndarray, size: Tuple[int, int],
+           interpolation: int = INTER_AREA) -> np.ndarray:
+    """cv2.resize(img, size=(w, h), interpolation) on an (H, W) or
+    (H, W, C) uint8 or float array, without cv2 (module docstring)."""
+    w_out, h_out = size
+    h, w = img.shape[:2]
+    if interpolation == INTER_NEAREST:
+        ys = np.minimum(np.floor(np.arange(h_out) * (1.0 / (h_out / h))), h - 1)
+        xs = np.minimum(np.floor(np.arange(w_out) * (1.0 / (w_out / w))), w - 1)
+        return np.ascontiguousarray(img[ys.astype(np.int64)][:, xs.astype(np.int64)])
+    if interpolation == INTER_CUBIC:
+        (iy, wy), (ix, wx) = _cubic_taps(h, h_out), _cubic_taps(w, w_out)
+    elif interpolation == INTER_AREA:
+        (iy, wy), (ix, wx) = _area_taps(h, h_out), _area_taps(w, w_out)
+    else:
+        raise ValueError(f"unsupported interpolation {interpolation}")
+    x = img.astype(np.float64)
+    shape = (1,) * (img.ndim - 2)
+    x = (x[:, ix] * wx.reshape(wx.shape + shape)).sum(axis=2)
+    x = (x[iy] * wy.reshape(wy.shape + (1,) + shape)).sum(axis=1)
+    if img.dtype == np.uint8:
+        return np.clip(np.floor(x + 0.5), 0, 255).astype(np.uint8)
+    return x.astype(img.dtype)
+
+
+def resize_min_side(img: np.ndarray, target: int,
+                    interpolation: Optional[int] = None) -> np.ndarray:
+    """Resize so the SHORTER side equals `target`, preserving aspect
+    (the reference's 480p policy, yv_test_dataset.py:103-108);
+    INTER_AREA by default."""
+    h, w = img.shape[:2]
+    if h > w:
+        size = (target, h * target // w)   # (w, h), as cv2 takes it
+    else:
+        size = (w * target // h, target)
+    return resize(img, size, INTER_AREA if interpolation is None else interpolation)
+
+
+def pick_480p_size(h: int, w: int) -> Tuple[int, int]:
+    """480p target (h, w) preserving aspect (yv_test_dataset.py:103-106)."""
+    if h > w:
+        return (h * 480 // w, 480)
+    return (480, w * 480 // h)

@@ -1,12 +1,13 @@
-"""Whole-video datasets: DAVIS and BL30K (counterpart of
-mivos_tpu/data/video_datasets.py::DAVISTestDataset and BLTestDataset;
-reference dataset/davis_test_dataset.py and dataset/bl_test_dataset.py).
+"""Whole-video datasets: DAVIS, BL30K and YouTubeVOS (counterpart of
+mivos_tpu/data/video_datasets.py; reference dataset/davis_test_dataset.py,
+dataset/bl_test_dataset.py and dataset/yv_test_dataset.py).
 
 Returns numpy NHWC dicts:
   rgb:  (T, H, W, 3) float32, ImageNet-normalized
   gt:   (K, T, H, W, 1) float32 one-hot object masks
-  info: name / num_frames / labels
-PIL is imported only where a file is decoded.
+  info: name / num_frames / labels (YouTubeVOS: its own keys)
+PIL is imported only where a file is decoded; YouTubeVOS frames are
+resized by data/transforms.py::resize, without cv2.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from mivos_tpu_torch.data.transforms import all_to_onehot, im_normalize
+from mivos_tpu_torch.data.transforms import (INTER_CUBIC, INTER_NEAREST,
+                                             all_to_onehot, im_normalize,
+                                             pick_480p_size, resize)
 
 
 def _load_rgb(p: str) -> np.ndarray:
@@ -126,3 +129,64 @@ class BLTestDataset:
             "gt": gt,
             "info": {"name": video, "num_frames": t, "labels": labels},
         }
+
+
+class YouTubeVOSTestDataset:
+    """YouTubeVOS loader with sparse GT frames and label forward/backward
+    mapping (reference yv_test_dataset.py:16-122). Images are resized so
+    the short side is 480 (bicubic; masks nearest).
+
+    root layout: vos/all_frames/<split>/JPEGImages/<video>/*.jpg and
+    vos/<split>/Annotations/<video>/*.png (the annotated frames only).
+    info: name, frames (file names), gt_obj (frame index -> the raw
+    labels annotated there), size (the masks' (h, w)), label_convert
+    (raw label -> 1..K), label_backward (its inverse), labels."""
+
+    def __init__(self, data_root: str, split: str = "valid"):
+        self.image_dir = path.join(data_root, "vos", "all_frames", split,
+                                   "JPEGImages")
+        self.mask_dir = path.join(data_root, "vos", split, "Annotations")
+        self.videos = sorted(os.listdir(self.image_dir))
+        self.frames = {v: sorted(os.listdir(path.join(self.image_dir, v)))
+                       for v in self.videos}
+
+    def __len__(self) -> int:
+        return len(self.videos)
+
+    def __getitem__(self, idx: int) -> Dict:
+        video = self.videos[idx]
+        frames = self.frames[video]
+        info = {"name": video, "frames": frames, "gt_obj": {}}
+        images, masks = [], []
+        shape = None
+        for i, f in enumerate(frames):
+            images.append(_load_rgb(path.join(self.image_dir, video, f)))
+            mask_file = path.join(self.mask_dir, video, f.replace(".jpg", ".png"))
+            if path.exists(mask_file):
+                m = _load_palette_mask(mask_file)
+                shape = m.shape
+                lab = np.unique(m)
+                info["gt_obj"][i] = lab[lab != 0]
+                masks.append(m)
+            else:
+                masks.append(None)
+        if shape is None:
+            raise ValueError(f"no annotation found for video {video}")
+        lab = np.stack([m if m is not None else np.zeros(shape, np.uint8)
+                        for m in masks])
+        info["size"] = shape
+        labels = np.unique(lab).astype(np.uint8)
+        labels = labels[labels != 0]
+        # Forward (raw label -> dense 1..K) and backward mapping
+        # (yv_test_dataset.py:91-99).
+        info["label_convert"] = {int(l): i + 1 for i, l in enumerate(labels)}
+        info["label_backward"] = {i + 1: int(l) for i, l in enumerate(labels)}
+        nh, nw = pick_480p_size(shape[0], shape[1])
+        rgb = np.stack([im_normalize(resize(im, (nw, nh), INTER_CUBIC))
+                        for im in images]).astype(np.float32)
+        onehot = all_to_onehot(lab, labels.tolist())
+        gt = np.stack([np.stack([resize(onehot[k, t], (nw, nh), INTER_NEAREST)
+                                 for t in range(onehot.shape[1])])
+                       for k in range(onehot.shape[0])]).astype(np.float32)[..., None]
+        info["labels"] = labels.tolist()
+        return {"rgb": rgb, "gt": gt, "info": info}

@@ -12,12 +12,14 @@ at thickness 1, OpenCV's 8-connected Bresenham iterator drawn left to
 right; thicker, OpenCV's `ThickLine` (imgproc/src/drawing.cpp) step by
 step in its 16-bit fixed point: the body as a convex quadrilateral
 (`FillConvexPoly` with its `Line2` outline) and a filled `Circle` cap at
-each end.
+each end. `mask_to_scribble` takes its distance transform from
+eval/robot.py::chamfer_distance, cv2.distanceTransform(DIST_L2, 3)'s
+3x3 chamfer.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -277,3 +279,34 @@ def select_single_frame(scribbles: Dict) -> Tuple[Dict, int]:
         if len(s) != 0:
             return {**scribbles, "scribbles": [s]}, idx
     return scribbles, 0
+
+
+def mask_to_scribble(mask: np.ndarray, frame: int, num_frames: int,
+                     num_points: int = 20,
+                     rng: Optional[np.random.RandomState] = None) -> Dict:
+    """Synthesize a scribble inside each label of an indexed mask (the
+    background's included), as mivos_tpu/interactive/scribbles.py:63
+    does: up to num_points interior points (chamfer distance above
+    max(1, 0.3 x its max), else any pixel of the label) in column-major
+    order, normalized to [0,1]^2, on `frame` of num_frames."""
+    from mivos_tpu_torch.eval.robot import chamfer_distance
+
+    rng = rng or np.random.RandomState(0)
+    h, w = mask.shape
+    lines = []
+    for obj in np.unique(mask):
+        region = (mask == obj).astype(np.uint8)
+        dt = chamfer_distance(region)
+        ys, xs = np.nonzero(dt > max(1.0, 0.3 * dt.max()))
+        if len(ys) == 0:
+            ys, xs = np.nonzero(region)
+        if len(ys) == 0:
+            continue
+        sel = rng.choice(len(ys), size=min(num_points, len(ys)), replace=False)
+        order = np.argsort(xs[sel] * h + ys[sel])
+        path = [[xs[sel][i] / (w - 1), ys[sel][i] / (h - 1)] for i in order]
+        lines.append({"path": path, "object_id": int(obj),
+                      "start_time": 0, "end_time": 1})
+    frames = [[] for _ in range(num_frames)]
+    frames[frame] = lines
+    return {"scribbles": frames, "annotated_frame": frame}

@@ -9,8 +9,10 @@ Intermediate features (f16, f8, f4, k16, v16, the skip towers) are NCHW
 tensors, and `get_attention` returns NCHW (K, 2, H, W) maps, which is
 what `FusionNet` takes.
 
-Only the reference decoder (dec_width=1.0, the published checkpoint's
-architecture) is ported. `read_memory` routes the read as the JAX
+`dec_width` scales the decoder's internal channels (JAX `Decoder.chan`):
+1.0 is the reference decoder, the published checkpoints'
+architecture; 0.5 the JAX package's opt-in slim decoder for nets
+trained from scratch. `read_memory` routes the read as the JAX
 network does (mivos_tpu/models/propagation.py:243-270): with `bank_mesh`
 set, the banks are grids of position shards and the read is the exact
 sharded read; with `object_mesh` set, grids of object shards read on
@@ -52,14 +54,22 @@ def _flatten_hw(x: torch.Tensor) -> torch.Tensor:
 class Decoder(nn.Module):
     """Refinement decoder: 1/16 -> 1/4 with skip connections, then a
     fp32 4x bilinear upsample to full resolution (reference
-    prop_net.py:14-31)."""
+    prop_net.py:14-31). `width` scales every internal channel count
+    (the inputs stay the readout and query value, f8 and f4)."""
 
-    def __init__(self):
+    def __init__(self, width: float = 1.0):
         super().__init__()
-        self.compress = ResBlock(1024, 512)
-        self.up_16_8 = UpsampleBlock(512, 512, 256)
-        self.up_8_4 = UpsampleBlock(256, 256, 256)
-        self.pred = conv3x3(256, 1)
+        c = lambda n: self.chan(n, width)  # noqa: E731
+        self.compress = ResBlock(1024, c(512))
+        self.up_16_8 = UpsampleBlock(512, c(512), c(256))
+        self.up_8_4 = UpsampleBlock(256, c(256), c(256))
+        self.pred = conv3x3(c(256), 1)
+
+    @staticmethod
+    def chan(n: int, width: float) -> int:
+        """Width-scaled channel count (mivos_tpu/models/propagation.py:47),
+        shared with the session's query-cache sizing."""
+        return max(16, int(round(n * width)))
 
     def skips(self, f8: torch.Tensor, f4: torch.Tensor):
         """Object-independent skip towers, run once per frame (batched
@@ -91,6 +101,7 @@ class PropagationNetwork(nn.Module):
     oracle). read_refine: threshold-refine passes of the kernel
     (default 0, as in the JAX package). dtype: the compute dtype the
     session casts the conv weights to (the bank inherits it).
+    dec_width: the decoder's channel multiplier (1.0 the reference).
 
     Read routing, set by InferenceCore from MemoryConfig like `km`:
     `bank_mesh` (a Mesh; banks arrive as grids with their position axis
@@ -100,13 +111,15 @@ class PropagationNetwork(nn.Module):
     """
 
     def __init__(self, top_k: Optional[int] = 50, read_backend: str = "auto",
-                 read_refine: int = 0, dtype: torch.dtype = torch.float32):
+                 read_refine: int = 0, dtype: torch.dtype = torch.float32,
+                 dec_width: float = 1.0):
         super().__init__()
         self.top_k = top_k
         self.km: Optional[float] = None   # the kernelized read's sigma; InferenceCore sets it
         self.read_backend = read_backend
         self.read_refine = read_refine
         self.dtype = dtype
+        self.dec_width = dec_width
         self.bank_mesh = None
         self.bank_axis = "data"
         self.object_mesh = None
@@ -116,7 +129,7 @@ class PropagationNetwork(nn.Module):
                                     layer1_name="res2")
         self.kv_m_f16 = KeyValue(1024, KEY_DIM, VAL_DIM)
         self.kv_q_f16 = KeyValue(1024, KEY_DIM, VAL_DIM)
-        self.decoder = Decoder()
+        self.decoder = Decoder(dec_width)
 
     def memorize(self, frame: torch.Tensor, masks: torch.Tensor,
                  others: Optional[torch.Tensor] = None):

@@ -10,7 +10,7 @@ replace_stride_with_dilation), so it stays at 1/16.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,19 +69,20 @@ class ResNet50(nn.Module):
     layer4_dilation=2.
 
     conv_bias: biased convs (the mod_resnet flavour of the 5-channel
-    mask encoder). layer1_name: the reference's RGBEncoder calls its
+    mask encoder). stem_bias: a bias on the stem conv alone (None:
+    follow conv_bias; mivos_tpu/models/resnet.py:111). layer1_name: the reference's RGBEncoder calls its
     first stage `res2` (modules.py:76), the other towers `layer1`.
     """
 
     def __init__(self, in_chans: int = 3, num_stages: int = 3,
                  conv_bias: bool = False, layer1_name: str = "layer1",
-                 layer4_dilation: int = 1):
+                 layer4_dilation: int = 1, stem_bias: Optional[bool] = None):
         super().__init__()
         if num_stages not in (3, 4) or layer4_dilation not in (1, 2):
             raise ValueError(f"num_stages {num_stages}, layer4_dilation "
                              f"{layer4_dilation}: expected 3|4 and 1|2")
         self.conv1 = Conv2d(in_chans, 64, 7, stride=2, padding=3,
-                            bias=conv_bias)
+                            bias=conv_bias if stem_bias is None else stem_bias)
         self.bn1 = FrozenBatchNorm(64)
         self.layer1_name = layer1_name
         self.add_module(layer1_name, ResNetStage(64, 64, 3, 1, conv_bias))

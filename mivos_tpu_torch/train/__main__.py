@@ -24,8 +24,11 @@ from the seed. --load_model resumes a checkpoint directory (iteration,
 FusionNet, optimizer, scheduler); --load_network loads FusionNet weights
 only. Checkpoints go to <save_dir>/<id>/ every save_every iterations,
 and on exit past 5000 iterations, with the FusionNet weights as
-final_<it>.pth (a fusion.pth). --device cuda (the default) fails without
-a CUDA device. The training-pair montage is not ported.
+final_<it>.pth (a fusion.pth). Every report_every * 10 iterations rank 0
+writes the training-pair montage (utils/image_saver.py::pool_fusion of
+the batch and the step's forward outputs; reference
+fusion_model.py:101-112) to <save_dir>/<id>/pairs_<it>.png. --device
+cuda (the default) fails without a CUDA device.
 """
 import argparse
 import os
@@ -87,6 +90,24 @@ def rank_device(device: torch.device) -> torch.device:
                          f"({torch.cuda.device_count()} CUDA devices)")
     torch.cuda.set_device(local)
     return torch.device("cuda", local)
+
+
+def save_montage(trainer: FusionTrainer, batch, save_dir: str, it: int) -> str:
+    """The training-pair montage of `batch` (the JAX train.py:142's
+    pool_fusion image) as <save_dir>/pairs_<it>.png; returns the path."""
+    from PIL import Image
+
+    from mivos_tpu_torch.utils.image_saver import pool_fusion
+
+    with torch.no_grad():
+        out = trainer.debug_outputs(batch)
+    vis = {k: v.numpy() if torch.is_tensor(v) else v for k, v in batch.items()
+           if k != "info"}
+    vis.update(mask=out["mask"], attn1=out["attn1"], attn2=out["attn2"])
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"pairs_{it:06d}.png")
+    Image.fromarray(pool_fusion(vis)).save(path)
+    return path
 
 
 def main(argv=None):
@@ -163,6 +184,8 @@ def main(argv=None):
                     last_report = time.time()
                     integrator.finalize("train", it)
                     integrator.reset_except_hooks()
+                if rank == 0 and it % (cfg.report_every * 10) == 0:
+                    save_montage(trainer, batch, save_dir, it)
                 if rank == 0 and it % cfg.save_every == 0:
                     mgr.save(it, trainer.state_dict())
             epoch += 1

@@ -7,13 +7,32 @@ axes explicitly so NCHW tensors inside the port use the same functions.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 Pad = Tuple[int, int, int, int]  # (left_w, right_w, top_h, bottom_h)
+
+
+def time_buckets(cap: int = 8192) -> Tuple[int, ...]:
+    """The JAX session's ladder of video lengths (8, then steps of
+    max(8, a quarter) up to `cap`; mivos_tpu/utils/tensor.py:141). The
+    query cache's byte cap is held against the length rounded up to it,
+    as the JAX session holds it."""
+    out = [8]
+    while out[-1] < cap:
+        out.append(out[-1] + max(8, out[-1] // 4))
+    return tuple(out)
+
+
+def next_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= n (ascending buckets; the last is a cap)."""
+    for b in buckets:
+        if n <= b:
+            return b
+    raise ValueError(f"size {n} exceeds largest bucket {buckets[-1]}")
 
 
 def compute_pad(h: int, w: int, d: int = 16) -> Pad:

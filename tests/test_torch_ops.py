@@ -63,7 +63,7 @@ def test_port_imports_no_jax_and_no_mivos_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert int(r.stdout.split()[-1]) >= 79  # every module was imported
+    assert int(r.stdout.split()[-1]) >= 88  # every module was imported
 
 
 # ---------------------------------------------------------------- (b)
@@ -486,6 +486,10 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     assert click_to_mask.parse_args(["--image", "x.png", "--clicks", "1,2,+"]
                                     ).device == "cuda"
+    from mivos_tpu_torch import accuracy_envelope, full_protocol, long_video_bench
+    for parse in (accuracy_envelope.parse_args, full_protocol.parse_args,
+                  long_video_bench.parse_args):
+        assert parse([]).device == "cuda"
     device = inspect.signature(MemoryBank.__init__).parameters["device"]
     assert device.default is inspect.Parameter.empty
     with pytest.raises(TypeError):
