@@ -8,28 +8,28 @@ Usage, from the repository root on a machine with an H100 and nvcc:
 Phases (any failure exits non-zero before the final line):
   1. card    require CUDA; print `nvidia-smi` name and power limit;
              build the CUDA kernels from csrc/ and print the build time.
-  2. gate    banks memorized by a random-init fp32 encoder over 13 and
-             26 synthetic 480p frames (M = 21060 and 42120, last 800
-             slots invalid), K = 3, fp32 and bf16: the kernels against
-             their plain PyTorch version (mean error <= 1e-4 of the
-             readout scale) and against the exact torch.topk read (mean
-             < 1e-3, max < 0.3 of the readout scale), n_refine 0 and 1;
-             each kernel alone against its plain phase; the iid-gaussian
-             regime at M = 20480, fp32 and bf16, n_refine 0, 1 and 2,
-             reported only; CUDA event timings of each kernel wrapper
-             (kernel and merge; on fp32 banks on the read's bf16 planes), its
-             plain phase and its bound at M = 1620, 11340 and 21060 (the
-             smallest, middle and largest bank of a bench round), one
-             line for bf16 banks and one for fp32 banks (with the whole
-             read against the plain and exact reads at M = 21060, two
-             refine calls that must give equal bits, and each split-M
-             kernel's number of M ranges); on fp32 banks also the planes
-             of keys and values, made once a read. Bound: the
-             tensor-core FLOPs at the bf16 peak
-             or the bytes at the memory rate, whichever is larger (see
-             bound_ms: the affinity as the JAX kernel's bf16 passes, two
-             for bf16 keys and three for fp32 keys, w.V as one bf16 pass
-             on bf16 banks and as three, fp32-accurate, on fp32 banks).
+  2. gate    kernel_check.encoder_banks of a random-init fp32 encoder
+             over 26 of synthetic_video's 480p frames (M = 21060 and
+             42120, last 800 slots invalid), K = 3, fp32 and bf16:
+             kernel_check.gate_session_shapes (the kernels against their
+             plain PyTorch version, mean error <= 1e-4 of the readout
+             scale, and against the exact torch.topk read, mean < 1e-3,
+             max < 0.3 of the readout scale, n_refine 0 and 1; each
+             kernel alone against its plain phase) and
+             kernel_check.phase_timing: CUDA event timings of each kernel
+             wrapper (kernel and merge; on fp32 banks on the read's bf16
+             planes), its plain phase and its bound at M = 1620, 11340 and
+             21060 (the smallest, middle and largest bank of a bench
+             round), one line for bf16 banks and one for fp32 banks (with
+             the whole read against the plain and exact reads at M =
+             21060, two refine calls that must give equal bits, and each
+             split-M kernel's number of M ranges); on fp32 banks also the
+             planes of keys and values, made once a read. Bound
+             (kernel_check.bound_ms): the tensor-core FLOPs at the bf16
+             peak or the bytes at the memory rate, whichever is larger
+             (the affinity as the JAX kernel's bf16 passes, two for bf16
+             keys and three for fp32 keys, w.V as one bf16 pass on bf16
+             banks and as three, fp32-accurate, on fp32 banks).
   3. check   a small fp32 session through the kernels against the same
              session through the exact read.
   4. session the bench protocol through InferenceCore.interact: 60
@@ -41,10 +41,8 @@ Phases (any failure exits non-zero before the final line):
              measured round (frames/s), and one with read_refine=1. The
              launch counters, zeroed just before each of the two paths'
              measured rounds, must equal the reads times each kernel's
-             launches per read (memory_read.launches_per_read). Then one
-             bf16 round with the slim decoder (dec_width=0.5, random
-             init, no fusion) after a warm round, frames/s beside width
-             1.0's, launches zeroed just before it ("slim").
+             launches per read (memory_read.launches_per_read). The slim
+             decoder's A/B is slim_decoder_bench, in the measure phase.
   4b. long_video  long_video_bench.run_limit, its first LONG_ROUNDS
              rounds: 960 uint8 frames 480x854, K = 2, bf16, mem_freq=1,
              bank_cap_frames=512, the interaction on frame 0; the
@@ -90,7 +88,7 @@ Phases (any failure exits non-zero before the final line):
              every map finite, in [0, 1], 480x854; one undo (restores
              the previous map exactly) and one finish_object; no memory
              read kernel launched. Then card against CPU at 240x320,
-             ZoomIn 240, 3 clicks: first click max |dp| <= 1e-3, then
+             ZoomIn 240, 2 clicks: first click max |dp| <= 1e-3, then
              the same clicks and mask (p > 0.49) IoU >= 0.99. Then where
              a click's time goes: GFLOP from shapes, CUDA-event ms of the
              head input and of one L-BFGS evaluation, profiler traces.
@@ -112,7 +110,7 @@ Phases (any failure exits non-zero before the final line):
              memory, NoBRS, f-BRS-B (insertion A) and f-BRS-C (C) drives.
              No memory-read kernel launches in the phase. Then each new
              mode and HRNet's B and C card against CPU at 240x320, ZoomIn
-             240, 3 clicks: the first map within 1e-3, the same clicks,
+             240, 2 clicks: the first map within 1e-3, the same clicks,
              mask IoU >= 0.99.
   9. serve   the HTTP session server, cuDNN autotune off with
              deterministic plans (as davis): SessionManager over the
@@ -145,7 +143,7 @@ Phases (any failure exits non-zero before the final line):
              equal labels. Prints S2M and click ms and each
              propagation's seconds.
  11. fusion_gen  python -m mivos_tpu_torch.generate_fusion's main() in
-             process on a DAVIS-layout tree of three 30-frame 480x854
+             process on a DAVIS-layout tree of three 20-frame 480x854
              JPEG videos with palette PNG annotations, K = 2, 3 and 0
              (no usable object), --separation 10, bf16, the random-init
              full-width PropagationNetwork saved as a reference-named
@@ -174,10 +172,9 @@ Phases (any failure exits non-zero before the final line):
              restore into a fresh trainer, one step on both: equal
              weights); the step alone (no loader worker running) and
              under the profiler; the loader alone, batches/s over 12
-             batches past the 16 its workers queue at the start; then
-             `python -m mivos_tpu_torch.train
-             --iterations 3` in a subprocess (exit 0, its checkpoint
-             written). Phase 11 also splits its time into propagation
+             batches past the 16 its workers queue at the start (the
+             train CLI runs in the measure phase's synthetic_lifecycle).
+             Phase 11 also splits its time into propagation
              and PNG writes.
  13. pretrain  synthetic pretraining (train/pretrain.py) with TF32 off:
              (1) a PropPretrainer on the card and one on the CPU from the
@@ -185,10 +182,10 @@ Phases (any failure exits non-zero before the final line):
              (1, 2), deterministic plans: losses within 1e-4 relative,
              every trained tensor within 3 * lr; (2) `python -m
              mivos_tpu_torch.pretrain_synthetic` in process at full width
-             (the JAX recipe's first stages): prop 500 steps at 192x192,
+             (the JAX recipe's first stages, cut): prop 300 steps at 192x192,
              lr 2e-4, chain 1, seeds from 1000, then chain-3 steps at
              256x448, lr 1e-4, for CHAIN3_BOX_S seconds (saved and logged
-             through the CLI's writer); s2m 500 steps and fbrs 200 at
+             through the CLI's writer); s2m 150 steps and fbrs 200 at
              batch 4, both at 192x192; batches built by 4 worker
              processes; per stage the median step, wait and CUDA-event
              device ms, peak GiB, one profiled prop step at each shape,
@@ -204,13 +201,15 @@ Phases (any failure exits non-zero before the final line):
              0.5, reported, and the same at 192x192, the first stage's
              size; (4) the gate of phase 2 on banks of the
              pretrained fp32 encoder, built as the JAX gate builds them
-             (scripts/pallas_kernel_check.py:84-116); (5) `python -m
+             (kernel_check.encoder_banks); (5) `python -m
              mivos_tpu_torch.train_fusion_synthetic` in process from the
              pretrained prop weights: 24 videos of 12 frames at 384x384,
              separation 4, generate_fusion in fp32 (launch counters,
              zeroed just before, equal to its reads times the fp32 launches
-             per read), 30 iterations at batch 12 with the loss
-             descending; its seconds, PNG share and losses.
+             per read), 20 iterations at batch 12 with the loss
+             descending; its seconds, PNG share and losses. Before the
+             chain-3 steps the chain-1 prop weights are copied to
+             prop_synthetic_s1.pth (curriculum_ab's single-step file).
  13b. accuracy  on the pretrain phase's weights, deterministic cuDNN
              plans: python -m mivos_tpu_torch.accuracy_envelope in
              process (prop and fusion .pth; fast: bf16 and the kernels,
@@ -228,6 +227,28 @@ Phases (any failure exits non-zero before the final line):
              max per-round |dJ&F| reported against the JAX bound 0.01,
              not held: on these weights JAX's own fast path crosses it
              too (scripts/torch_protocol_witness.sh, PERF.md).
+ 13c. measure  each measuring entry point's main in process at full
+             width, on the pretrain phase's weights where it takes
+             weights: bench (its in-process kernel gate, then 1 warm and 7
+             measured bench-protocol sessions, cuDNN autotune on),
+             slim_decoder_bench (width 1.0 then 0.5, 1 warm and 3 sessions
+             each, autotune on), kernel_check (full mode on the chain-3
+             prop weights: the encoder regime at M = 21060 gated, the iid
+             regime at M = 20480 and 40960 reported, the cuda, exact and
+             plain reads timed), refine_sweep (n_refine 0-3, the refine
+             kernel and its merge launched n_refine times a read),
+             mfu_report (--measure 8 --fps at bench's median),
+             interactive_latency_bench, serve_streaming_bench (300 frames:
+             the query cache must be off), train_step_bench, noc_synthetic
+             (evaluate on the 200-step fbrs weights, its first NOC_SCENES
+             scenes: NoC@80/85/90 and
+             each scene's first IoU and clicks reported; the module's
+             asserts not held, see phase_measure),
+             curriculum_ab (the chain-3 prop weights against their chain-1
+             snapshot) and synthetic_lifecycle at LIFE_ITERS iterations
+             (its kill and resume, the loss descending). Each module holds
+             its kernel launches to its reads; their counts join the
+             kernels line.
  14. multichip  the multi-device paths, on distinct cards where the host
              has as many as a mesh has positions, else on meshes that
              repeat cuda:0 (printed): (1) the bank-sharded exact read on
@@ -248,7 +269,7 @@ Phases (any failure exits non-zero before the final line):
              read kernels' launches (zeroed just before each mode: the
              object-sharded reads launch each kernel once a read on
              every object shard, bank and 2D reads none) and, profiled,
-             the CUDA kernels a frame; (3) DDP: 3 FusionTrainer steps at
+             the CUDA kernels a frame; (3) DDP: 2 FusionTrainer steps at
              batch 12, 384x384, fp32, over min(4, cards) NCCL ranks, or
              2 gloo ranks on cuda:0 on one card, against one process on
              the whole batch, and SyncBatchNorm over the ranks against
@@ -259,11 +280,12 @@ family of a bank dtype (KERNELS): "launches" sums its CUDA launches
 (kernel and merge) over its paths (bf16: the session's bf16 rounds, the
 davis run, serve, gui, fusion_gen, the pretrain phase's held-out
 session, the multichip phase's bf16 object-sharded and 2D rounds, the
-long video, the envelope's fast session, the full protocol's fast path
-and the slim round;
-fp32: the session's fp32 rounds, the pretrain phase's generate_fusion,
-the multichip phase's fp32 object-sharded rounds and the read-only full
-protocol), "max_abs_err" is the worst of the gates of its bank
+long video, the envelope's fast session, the full protocol's fast path,
+and the measure phase's bench sessions, kernel_check, refine_sweep,
+slim A/B, streaming rounds and curriculum passes; fp32: the session's
+fp32 rounds, the pretrain phase's generate_fusion, the multichip phase's
+fp32 object-sharded rounds, kernel_check and the lifecycle's
+generate_fusion), "max_abs_err" is the worst of the gates of its bank
 dtype (random-init, pretrained and long-video banks), "ms",
 "plain_ms" and "bound_ms" are at M = 21060, and "long_M" holds the
 kernel's ms and bound at the long video's M. The last line is
@@ -274,8 +296,8 @@ import copy
 import io
 import json
 import os
+import shutil
 import subprocess
-import sys
 import tempfile
 import threading
 import time
@@ -285,9 +307,12 @@ import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from mivos_tpu_torch import (accuracy_envelope, envelope_diagnose, full_protocol,
-                             generate_fusion, long_video_bench, pretrain_synthetic,
-                             train_fusion_synthetic)
+from mivos_tpu_torch import (accuracy_envelope, bench, curriculum_ab, envelope_diagnose,
+                             full_protocol, generate_fusion, interactive_latency_bench,
+                             long_video_bench, mfu_report, noc_synthetic, pretrain_synthetic,
+                             refine_sweep, serve_streaming_bench, slim_decoder_bench,
+                             synthetic_lifecycle, train_fusion_synthetic, train_step_bench)
+from mivos_tpu_torch import kernel_check as kc
 from mivos_tpu_torch.checkpoint.manager import CheckpointManager, save_params
 from mivos_tpu_torch.checkpoint.pth import (attention_read_state_dict,
                                             load_reference_pth, read_state_dict)
@@ -332,6 +357,9 @@ from mivos_tpu_torch.serve import SessionManager, make_server, shutdown_graceful
 from mivos_tpu_torch.train.fbrs_losses import sigmoid_bce_from_probs
 from mivos_tpu_torch.train.pretrain import PropPretrainer, batches
 from mivos_tpu_torch.train.trainer import FusionTrainer
+from mivos_tpu_torch.kernel_check import (TIMING_M, bound_ms, gate_read, gate_session_shapes,
+                                           phase_timing, worst_errs)
+from mivos_tpu_torch.utils.measure import cuda_ms, interaction_mask, reads_of
 from mivos_tpu_torch.utils.tensor import (compute_pad, labels_to_probs,
                                           one_hot_mask, pad_divide_by, unpad)
 
@@ -341,28 +369,35 @@ GATE_FRAMES, TAIL = 26, 800
 MEASURED = 3
 DAVIS_T, DAVIS_ROUNDS, DAVIS_SEQS = 50, 8, ((101, 2), (102, 3))  # (seed, K)
 PROPAGATE_ON = (2, 5, 7)     # reference davis_processor.py:34
-FBRS_CLICKS, FBRS_CHECK = 5, (240, 320, 3)   # check: h, w, clicks
+FBRS_CLICKS, FBRS_CHECK = 5, (240, 320, 2)   # check: h, w, clicks
 FBRS_LOGIT_GAIN = 10.0       # as tests/test_torch_fbrs.py
 FBRS_NEW_MODES = ("f-BRS-A", "f-BRS-C", "RGB-BRS", "DistMap-BRS")
 HRNET_MODES = ("NoBRS", "f-BRS-B", "f-BRS-C")
 TILE_CROP = (320, 480)
-GEN_T, GEN_SEPARATION = 40, 10
+GEN_T, GEN_SEPARATION = 20, 10
 FG_VIDEOS = ((61, 2), (62, 3), (63, 0))   # (seed, K); K = 0: no usable object
 TRAIN_BATCH, TRAIN_STEPS = 12, 20
-LOADER_BATCHES = 24   # the loader alone, past its initial queue
+LOADER_BATCHES = 12   # the loader alone, past its initial queue
 # Pretraining: the JAX recipe's first stages (scripts/r5_train_pipeline.sh:23,32,36).
 PRE_LR, PRE_SEED, PRE_HW, PRE_WINDOW = 2e-4, 1000, 192, 25
-PRE_STEPS = {"prop": 500, "s2m": 500, "fbrs": 200}
-CHAIN3_HW, CHAIN3_LR, CHAIN3_SEED, CHAIN3_BOX_S = (256, 448), 1e-4, 2000, 30.0
+PRE_STEPS = {"prop": 300, "s2m": 150, "fbrs": 200}
+CHAIN3_HW, CHAIN3_LR, CHAIN3_SEED, CHAIN3_BOX_S = (256, 448), 1e-4, 2000, 10.0
 HELD_OUT_SEED, HELD_T, HELD_K = 777, 20, 2   # outside every training seed
 # Fusion on synthetic data: 24 videos (the JAX script's default) of 12
 # frames at 384x384, two batches an epoch (one sample per video an
 # epoch; the loader starts its workers anew each epoch).
-FS_VIDEOS, FS_FRAMES, FS_HW, FS_SEPARATION, FS_ITERS, FS_REPORT = 24, 12, 384, 4, 30, 10
+FS_VIDEOS, FS_FRAMES, FS_HW, FS_SEPARATION, FS_ITERS, FS_REPORT = 24, 12, 384, 4, 20, 10
 # The long video (long_video_bench --limit): its first LONG_ROUNDS rounds
-# of three (the first reaches the bank's largest M); K = 2, N = 1620, the gate at its largest read's M.
-LONG_ROUNDS, LONG_K = 2, 2
-SLIM_WIDTH = 0.5   # the JAX package's opt-in slim decoder (scripts/slim_decoder_bench.py)
+# of three (the first reaches the bank's largest M); K = 2, N = 1620, the
+# gate at its largest read's M.
+LONG_ROUNDS, LONG_K = 1, 2
+# The measure phase: the pretrain phase's single-step prop snapshot, and
+# synthetic_lifecycle at reduced depth (its default: 400 iterations at
+# batch 8, a checkpoint every 100, a report every 25; at batch 4 an
+# epoch of its 12 videos holds 3 batches).
+S1_NAME = "prop_synthetic_s1.pth"
+LIFE_ITERS, LIFE_BATCH, LIFE_SAVE, LIFE_REPORT = 16, 4, 4, 2
+NOC_SCENES = 6   # of noc_synthetic's 20 held-out scenes
 SRC = "mivos_tpu_torch/csrc/memory_read.cu"
 # The Pallas code each phase's kernels replace: the three pallas_calls'
 # kernels, and the split of fp32 key tiles in `_affinity` that the
@@ -381,9 +416,6 @@ KERNELS = (("candidates_bf16", "candidates", BF16, ("candidates_bf16", "candidat
            ("refine_f32", "refine", F32, ("refine_f32", "refine_merge")),
            ("readout_f32", "readout", F32, ("readout_f32", "readout_merge")),
            ("hilo_planes", "hilo_planes", F32, ("hilo_planes",)))
-TIMING_M = (1620, 11340, 21060)
-# NVIDIA H100 SXM peaks at 700 W (data sheet): dense bf16 tensor cores, HBM3.
-PEAK_BF16_FLOPS, PEAK_BYTES_S = 989e12, 3.35e12
 MEAN, STD = np.array([0.485, 0.456, 0.406]), np.array([0.229, 0.224, 0.225])
 
 
@@ -420,26 +452,6 @@ def synthetic_video(seed, t, h, w, k):
     return frames, labels
 
 
-def interaction_mask(seed):
-    """(K+1, RH, RW, 1) hard probabilities of a random label map."""
-    lab = np.random.RandomState(seed).randint(0, K + 1, (RH, RW))
-    fg = (lab[None] == np.arange(1, K + 1)[:, None, None]).astype(np.float32)
-    return np.concatenate([1.0 - fg.sum(0, keepdims=True), fg])[..., None]
-
-
-def cuda_ms(fn, iters=10, warmup=2):
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_card():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
@@ -462,273 +474,18 @@ def phase_card():
     return card
 
 
-def gate_banks(dev):
-    """Random-init fp32 encoder banks over GATE_FRAMES synthetic frames and
-    the query key of the next frame."""
-    net = init_params(PropagationNetwork(top_k=TOP_K),
-                      torch.Generator().manual_seed(0)).to(dev).eval()
-    frames, labels = synthetic_video(7, GATE_FRAMES + 1, RH, RW, K)
-    mks, mvs = [], []
-    with torch.no_grad():
-        for t in range(GATE_FRAMES):
-            frame = pad_divide_by(torch.from_numpy(frames[t]).to(dev))[0]
-            masks = pad_divide_by(one_hot_mask(
-                torch.from_numpy(labels[t]).to(dev), K))[0]
-            mk, mv = net.memorize(frame, masks)
-            mks.append(mk)
-            mvs.append(mv)
-        qframe = pad_divide_by(torch.from_numpy(frames[GATE_FRAMES]).to(dev))[0]
-        k16 = net.get_query_values(qframe)[3]
-    q = k16[0].flatten(1).t().contiguous()
-    return torch.cat(mks, 1), torch.cat(mvs, 1), q
-
-
-def shared_threshold(st_a, st_b):
-    """Phase A stats `st_a` with each row's threshold lowered to the
-    smaller of two pipelines' (a kernel's and its plain version's), the
-    threshold the readout kernel and its plain phase are compared on.
-    Where the two bisections part, the pipeline whose rounding put the
-    boundary entry on the midpoint counted it and ends with its threshold
-    at that entry, which the other rounding can put one ulp below; the
-    other pipeline ends below the entry, so both roundings keep it there.
-    On the higher threshold each read is right by its own affinity yet
-    the two differ by that entry's weight: up to 1.2% of the readout
-    scale in a row on a pretrained encoder's banks, 9e-4 in the mean
-    (tests/test_torch_gate.py)."""
-    st = st_a.clone()
-    st[:, 0] = torch.minimum(st_a[:, 0], st_b[:, 0])
-    return st
-
-
-def gate_read(mk, mv, q, valid, per_object=False):
-    """Hold the read of one bank against its references: the whole read
-    (n_refine 0 and 1) against its plain version (mean <= 1e-4 of the
-    readout scale) and the exact torch.topk read (mean < 1e-3, max < 0.3
-    of the scale), then each kernel alone against its plain phase on the
-    same inputs (the readout on shared_threshold's stats). per_object:
-    the kernels read all K objects at once and the references, whose
-    dense (K, N, M) fp32 affinity would not fit at a long video's M, one
-    object at a time. Returns the whole-read reports and the per-kernel
-    one."""
-    objs = ([slice(j, j + 1) for j in range(mk.shape[0])] if per_object
-            else [slice(None)])
-
-    def by_object(fn):
-        return torch.cat([fn(o) for o in objs])
-
-    exact = by_object(lambda o: memory_read(mk[o], mv[o], q, top_k=TOP_K,
-                                            valid=valid, backend="exact"))
-    scale = exact.abs().mean().item()
-    reps = []
-    for n_refine in (0, 1):
-        out = cmr.memory_read_threshold_cuda(mk, mv, q, TOP_K, valid, n_refine)
-        plain = by_object(lambda o: cmr.memory_read_threshold_plain(
-            mk[o], mv[o], q, TOP_K, valid, n_refine))
-        rep = {"regime": "encoder", "K": mk.shape[0], "M": mk.shape[1],
-               "dtype": str(mk.dtype)[6:], "n_refine": n_refine,
-               "readout_scale": scale,
-               "vs_plain_mean": (out - plain).abs().mean().item(),
-               "vs_plain_max": (out - plain).abs().max().item(),
-               "vs_exact_mean": (out - exact).abs().mean().item(),
-               "vs_exact_max": (out - exact).abs().max().item()}
-        reps.append(rep)
-        check(bool(torch.isfinite(out).all()), f"non-finite readout {rep}")
-        check(rep["vs_plain_mean"] <= 1e-4 * scale, f"kernel vs plain {rep}")
-        check(rep["vs_exact_mean"] < 1e-3 * scale, f"kernel vs exact {rep}")
-        check(rep["vs_exact_max"] < 0.3 * scale, f"kernel vs exact {rep}")
-    del exact, out, plain
-    rq = cmr.read_query(q)
-    mask = cmr.additive_mask(valid)
-    planes = None if mk.dtype == BF16 else cmr.bank_planes_cuda(mk, mv)
-    st_k = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
-    ref_k = cmr.refine_cuda(rq, mk, mask, st_k, TOP_K, planes)
-    st_p, ref_p = [], []
-    for o in objs:
-        aff = cmr.read_affinity(rq, mk[o], mask)
-        st_p.append(cmr.candidates_plain(aff, TOP_K))
-        ref_p.append(cmr.refine_plain(aff, st_k[o], TOP_K))
-        del aff
-    st_p, ref_p = torch.cat(st_p), torch.cat(ref_p)
-    st = shared_threshold(st_k, st_p)
-    out_k = cmr.readout_cuda(rq, mk, mv, mask, st, planes)
-    out_p = by_object(lambda o: cmr.readout_plain(cmr.read_affinity(rq, mk[o], mask),
-                                                  mv[o], st[o]))
-    errs = {"candidates": (st_k - st_p).abs().max().item(),
-            "refine": (ref_k - ref_p).abs().max().item(),
-            "readout": (out_k - out_p).abs().max().item()}
-    kernel_rep = {"K": mk.shape[0], "M": mk.shape[1],
-                  "dtype": str(mk.dtype)[6:], "per_kernel_max_abs_err": errs,
-                  "readout_mean_abs_err": (out_k - out_p).abs().mean().item(),
-                  "readout_scale": out_p.abs().mean().item()}
-    if planes is not None:   # both round to nearest even: equal bits
-        errs["hilo_planes"] = max(
-            (a.float() - b.float()).abs().max().item() for a, b in
-            zip(planes, cmr.hilo_planes_plain(mk) + cmr.hilo_planes_plain(mv)))
-        check(errs["hilo_planes"] == 0.0, f"bf16 planes vs plain {kernel_rep}")
-    # Thresholds in nats: affinity rounding (the tensor cores' accumulation
-    # order against cuBLAS's) may move a bisection step only where a bin value
-    # sits within ~1e-6 of a midpoint, i.e. at the last steps' ~1e-5
-    # resolution.
-    check(errs["candidates"] <= 1e-3, f"candidates vs plain {kernel_rep}")
-    check(errs["refine"] <= 1e-3, f"refine vs plain {kernel_rep}")
-    check(kernel_rep["readout_mean_abs_err"] <= 1e-4 * kernel_rep["readout_scale"]
-          and errs["readout"] < 0.3 * kernel_rep["readout_scale"],
-          f"readout vs plain {kernel_rep}")
-    return reps, kernel_rep
-
-
-def worst_errs(reps):
-    """Each kernel's worst error over gate reports, per bank dtype."""
-    worst = {}
-    for rep in reps:
-        by_name = worst.setdefault(rep["dtype"], {})
-        for name, err in rep["per_kernel_max_abs_err"].items():
-            by_name[name] = max(by_name.get(name, 0.0), err)
-    return worst
-
-
-def gate_session_shapes(mk_all, mv_all, q, banks):
-    """gate_read at the session's read shapes: K = 3, M = half and all of
-    the banks' slots (21060 and 42120), the last TAIL slots invalid, fp32
-    and bf16. Logs every report with the banks' origin; returns each
-    kernel's worst error."""
-    m_all = mk_all.shape[1]
-    n16 = (-(-RH // 16)) * (-(-RW // 16))   # 30 * 54 = 1620 at 480p
-    check(tuple(q.shape) == (n16, 128), f"query shape {tuple(q.shape)}")
-    log(f"gate banks ({banks}): M = {m_all // 2} and {m_all}, N = {q.shape[0]}")
-    kernel_reps = []
-    for m in (m_all // 2, m_all):
-        valid = torch.arange(m, device=q.device) < m - TAIL
-        for dtype in (F32, BF16):
-            reps, kernel_rep = gate_read(mk_all[:, :m].to(dtype).contiguous(),
-                                         mv_all[:, :m].to(dtype).contiguous(),
-                                         q, valid)
-            for rep in reps + [kernel_rep]:
-                log(json.dumps(dict(rep, banks=banks)))
-            kernel_reps.append(kernel_rep)
-    return worst_errs(kernel_reps)
-
-
 def phase_gate(dev):
-    """The gate at the session's read shapes (K = 3, M = 21060 and 42120,
-    the last TAIL slots invalid), fp32 and bf16, and the timings of
-    phase_timing. Returns each kernel's worst error, the timings and the
-    gate banks, which the DAVIS gate reuses."""
-    mk_all, mv_all, q = gate_banks(dev)
-    errs = gate_session_shapes(mk_all, mv_all, q, "random-init")
-    # iid-gaussian ties: reported, not gated (as in the JAX kernel check).
-    rng = np.random.RandomState(0)
-    gk, gv, gq = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dev)
-                  for s in ((K, 20480, 128), (K, 20480, 512), (1620, 128)))
-    for dtype in (torch.float32, torch.bfloat16):
-        gk, gv = gk.to(dtype), gv.to(dtype)
-        exact = memory_read(gk, gv, gq, top_k=TOP_K, backend="exact")
-        for n_refine in (0, 1, 2):
-            out = cmr.memory_read_threshold_cuda(gk, gv, gq, TOP_K, None, n_refine)
-            plain = cmr.memory_read_threshold_plain(gk, gv, gq, TOP_K, None, n_refine)
-            log(json.dumps({"regime": "iid-gaussian", "M": 20480,
-                            "dtype": str(dtype)[6:], "n_refine": n_refine,
-                            "readout_scale": exact.abs().mean().item(),
-                            "vs_plain_mean": (out - plain).abs().mean().item(),
-                            "vs_exact_mean": (out - exact).abs().mean().item(),
-                            "vs_exact_max": (out - exact).abs().max().item()}))
-    del gk, gv, out, exact, plain
-
-    timing = {dtype: phase_timing(mk_all, mv_all, q, dtype) for dtype in (BF16, F32)}
+    """kernel_check's gate at the session's read shapes (K = 3, M = 21060
+    and 42120, the last TAIL slots invalid), fp32 and bf16, on the banks
+    a random-init encoder memorizes over synthetic_video's frames (seed
+    7), and kernel_check.phase_timing. Returns each kernel's worst error,
+    the timings and the gate banks, which the DAVIS, fusion_gen and
+    multichip gates reuse."""
+    mk_all, mv_all, q = kc.encoder_banks(kc.prop_net(None), GATE_FRAMES, dev,
+                                         synthetic_video(7, GATE_FRAMES + 1, RH, RW, K))
+    errs = gate_session_shapes(mk_all, mv_all, q, "random-init", log)
+    timing = {dtype: phase_timing(mk_all, mv_all, q, dtype, log) for dtype in (BF16, F32)}
     return errs, timing, (mk_all, mv_all, q)
-
-
-def bound_ms(name, k, n, m, dtype):
-    """Least time of one call of a TPU kernel's counterpart on a bank of
-    `dtype` with a mask: its tensor-core FLOPs at the bf16 peak, or its
-    bytes (each input read once, each output written once) at the memory
-    rate, whichever is larger. The affinity counts as the JAX kernel's
-    bf16 passes (`_affinity`, pallas/memory_read.py:102-113): two for
-    bf16 keys, three for fp32 keys; the readout's w.V as one bf16 pass on
-    bf16 banks and as three on fp32 banks (an fp32-accurate product from
-    bf16 passes, as the affinity's). "hilo_planes": the planes of one
-    read, fp32 keys and values read, two bf16 planes of each written.
-    Returns (ms, "operations" | "bytes")."""
-    if name == "hilo_planes":
-        return k * m * (cmr.CK + cmr.CV) * (4 + 2 + 2) / PEAK_BYTES_S * 1e3, "bytes"
-    bf16 = dtype == torch.bfloat16
-    passes, esize = (2, 2) if bf16 else (3, 4)
-    flops = passes * 2 * k * n * m * cmr.CK
-    # keys, mask, stats, the query (fp32 q, or bf16 q_hi and q_lo)
-    nbytes = k * m * cmr.CK * esize + m * 4 + k * 3 * n * 4 + n * cmr.CK * 4
-    if name == "refine":
-        nbytes += k * 3 * n * 4                                # stats out
-    if name == "readout":
-        flops += (1 if bf16 else 3) * 2 * k * n * m * cmr.CV
-        nbytes += k * m * cmr.CV * esize + k * n * cmr.CV * 4  # values, out
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
-
-
-def phase_timing(mk_all, mv_all, q, dtype):
-    """CUDA-event times of each kernel wrapper (kernel and merge; on fp32
-    banks on the read's planes, and the planes of keys and values, as one
-    read makes them), its plain phase (affinity included) and its bound
-    at M = TIMING_M, banks of
-    `dtype`, K = 3, N = 1620, the last TAIL slots invalid; two refine
-    calls that must give equal bits; at the largest M the whole read
-    against the plain and exact reads. Prints one line; returns
-    {M: {...}}."""
-    dev = q.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    bf16 = dtype == torch.bfloat16
-    timing = {}
-    for m in TIMING_M:
-        mk = mk_all[:, :m].to(dtype).contiguous()
-        mv = mv_all[:, :m].to(dtype).contiguous()
-        k, n = mk.shape[0], q.shape[0]
-        rq = cmr.read_query(q)
-        valid = torch.arange(m, device=dev) < m - TAIL
-        mask = cmr.additive_mask(valid)
-        planes = None if bf16 else cmr.bank_planes_cuda(mk, mv)
-        st = cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)
-
-        def plain_phase(fn):
-            return lambda: fn(cmr.read_affinity(rq, mk, mask))
-
-        ms = {"candidates": cuda_ms(lambda: cmr.candidates_cuda(rq, mk, mask, TOP_K, planes)),
-              "refine": cuda_ms(lambda: cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes)),
-              "readout": cuda_ms(lambda: cmr.readout_cuda(rq, mk, mv, mask, st, planes))}
-        plain_ms = {
-            "candidates": cuda_ms(plain_phase(lambda a: cmr.candidates_plain(a, TOP_K)), 3, 1),
-            "refine": cuda_ms(plain_phase(lambda a: cmr.refine_plain(a, st, TOP_K)), 3, 1),
-            "readout": cuda_ms(plain_phase(lambda a: cmr.readout_plain(a, mv, st)), 3, 1)}
-        if not bf16:
-            ms["hilo_planes"] = cuda_ms(lambda: cmr.bank_planes_cuda(mk, mv))
-            plain_ms["hilo_planes"] = cuda_ms(
-                lambda: (cmr.hilo_planes_plain(mk), cmr.hilo_planes_plain(mv)), 3, 1)
-        bounds = {name: bound_ms(name, k, n, m, dtype) for name in ms}
-        rep = {"kernel_ms": ms, "plain_ms": plain_ms,
-               "bound_ms": {name: b[0] for name, b in bounds.items()},
-               "bound_by": {name: b[1] for name, b in bounds.items()},
-               "share_of_bound": {name: bounds[name][0] / ms[name] for name in ms}}
-        refined = cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes)
-        rep["refine_repeats_bitwise"] = bool(torch.equal(
-            cmr.refine_cuda(rq, mk, mask, st, TOP_K, planes), refined))
-        check(rep["refine_repeats_bitwise"], f"refine differs between calls at M = {m}")
-        rep["splits"] = {
-            "candidates": cmr.kernel_splits("candidates", k, n, m, sms),
-            "refine": cmr.kernel_splits("refine" if bf16 else "refine_f32", k, n, m, sms),
-            "readout": cmr.kernel_splits("readout", k, n, m, sms)}
-        if m == TIMING_M[-1]:
-            rep.update({
-                "kernel_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
-                    mk, mv, q, TOP_K, valid)),
-                "kernel_read_refine1_ms": cuda_ms(lambda: cmr.memory_read_threshold_cuda(
-                    mk, mv, q, TOP_K, valid, 1)),
-                "plain_read_ms": cuda_ms(lambda: cmr.memory_read_threshold_plain(
-                    mk, mv, q, TOP_K, valid), 3, 1),
-                "exact_read_ms": cuda_ms(lambda: memory_read(
-                    mk, mv, q, top_k=TOP_K, valid=valid, backend="exact"), 3, 1)})
-        timing[m] = rep
-        del mk, mv
-    log(json.dumps({"timing": str(dtype)[6:], "K": K, "N": q.shape[0], "by_M": timing}))
-    return timing
 
 
 def bank_prefix(x, k, m, dtype):
@@ -920,13 +677,6 @@ def phase_check(dev):
     check(rep["decided_agreement"] >= 0.999, f"kernel vs exact session {rep}")
 
 
-def expected_reads(core, idx):
-    """Frames the next interact(idx) propagates to: one memory read each."""
-    front = min([ti for ti in core.interacted if ti > idx] + [core.t])
-    back = max([ti for ti in core.interacted if ti < idx] + [-1])
-    return (front - idx - 1) + (idx - back - 1)
-
-
 def session_invariants(core, labels):
     """Labels (T, H, W) uint8 <= K; every frame that holds probabilities
     has finite ones that sum to 1 over the classes."""
@@ -959,7 +709,7 @@ def check_read_launches(counts_before, reads, read_refine, bank_dtype):
 
 def run_round(core, mask, idx, counts_before):
 
-    reads = expected_reads(core, idx)
+    reads = reads_of(core, idx)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     labels = core.interact(mask, idx)
@@ -996,7 +746,7 @@ def phase_session(dev):
     # Frames and interaction masks reach the device before the timed
     # rounds, as in bench.py.
     images = torch.from_numpy(rng.rand(T, RH, RW, 3).astype(np.float32)).to(dev)
-    masks = [torch.from_numpy(interaction_mask(s)).to(dev) for s in range(8)]
+    masks = [interaction_mask(s, RH, RW, K, dev) for s in range(8)]
     mem = MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ)
 
     warm = InferenceCore(prop, fuse, images, K, mem=mem, device=dev)
@@ -1031,26 +781,7 @@ def phase_session(dev):
                     "rounds": fps, "reads": total_reads,
                     "launches": counts}))
     f32_counts = session_f32(dev, images, masks, mem)
-    return counts, f32_counts, session_slim(dev, images, masks, mem, fps)
-
-
-def session_slim(dev, images, masks, mem, width1_fps):
-    """One bf16 round of the bench protocol with the slim decoder
-    (dec_width=SLIM_WIDTH, random init, no fusion) after a warm round, as
-    scripts/slim_decoder_bench.py compares it: frames/s beside width
-    1.0's rounds. Returns its launch counts, zeroed just before it."""
-    prop = init_params(PropagationNetwork(top_k=TOP_K, dtype=BF16, dec_width=SLIM_WIDTH),
-                       torch.Generator().manual_seed(0)).to(dev)
-    warm = InferenceCore(prop, None, images, K, mem=mem, device=dev)
-    run_round(warm, masks[7], 0, cmr.launch_counts())
-    del warm
-    cmr.reset_launch_counts()   # the slim path's launches start here
-    core = InferenceCore(prop, None, images, K, mem=mem, device=dev)
-    dt, reads, counts = run_round(core, masks[0], 0, cmr.launch_counts())
-    log(json.dumps({"metric": "propagation_fps_480p_3obj_slim", "dec_width": SLIM_WIDTH,
-                    "frames_s": (T - 1) / dt, "round_s": dt, "reads": reads,
-                    "width_1_frames_s": width1_fps, "launches": counts}))
-    return counts
+    return counts, f32_counts
 
 
 def session_f32(dev, images, masks, mem):
@@ -1152,7 +883,7 @@ def watched_cores(calls, read_shapes):
     orig_interact, orig_update = InferenceCore.interact, InferenceCore.update_mask_only
 
     def interact(self, mask, idx):
-        reads, before = expected_reads(self, idx), cmr.launch_counts()
+        reads, before = reads_of(self, idx), cmr.launch_counts()
         labels = orig_interact(self, mask, idx)
         check_read_launches(before, reads, self.prop_net.read_refine,
                             self.bank.dtype)
@@ -1842,7 +1573,7 @@ def phase_serve(dev):
             time.sleep(0.01)
 
     poller = threading.Thread(target=poll)
-    reads += expected_reads(core_a, 0)
+    reads += reads_of(core_a, 0)
     t_start = time.perf_counter()
     poller.start()
     served = [interact(sid_a, *rounds_a[0])]
@@ -1861,7 +1592,7 @@ def phase_serve(dev):
     rep["first_chunk_cb_ms"] = (handed[0] - t_start) * 1e3
     rep["chunks"] = len(handed)
     rep["polls"], rep["partial_polls"] = len(polls), len(streaming)
-    reads += expected_reads(core_a, T - 1)
+    reads += reads_of(core_a, T - 1)
     served.append(interact(sid_a, *rounds_a[1]))   # the fusion pass
     _, body = http(f"{base}/v1/sessions/{sid_a}/masks")
     check(np.array_equal(body["masks"], served[-1][0]),
@@ -1873,8 +1604,8 @@ def phase_serve(dev):
     _, body = http(f"{base}/v1/sessions?num_objects={K}", "POST",
                    {"video": video_b})
     sid_b = body["session_id"]
-    reads += expected_reads(core_a, rounds_a[2][0])
-    reads += expected_reads(mgr._get(sid_b).core, 0)
+    reads += reads_of(core_a, rounds_a[2][0])
+    reads += reads_of(mgr._get(sid_b).core, 0)
     both = {}
     clients = [threading.Thread(target=lambda: both.update(
                    a=interact(sid_a, *rounds_a[2]))),
@@ -1953,7 +1684,7 @@ def phase_gui(dev):
 
     def interact(mask, idx, **hooks):
         calls.append(("interact", mask.clone(), idx))
-        reads.append(expected_reads(core, idx))
+        reads.append(reads_of(core, idx))
         return orig_interact(mask, idx, **hooks)
 
     def update_mask_only(mask, idx):
@@ -2359,21 +2090,8 @@ def phase_train(dev, tmp, root, fd_root, pth):
         next(fed)
     rep["loader_batches_s"] = LOADER_BATCHES / (time.perf_counter() - t0)
     fed.close()
-
-    # The entry point as a user runs it, on the same data.
-    save_dir = os.path.join(tmp, "saves")
-    t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "mivos_tpu_torch.train", "--id", "smoke",
-         "--im_root", im_root, "--gt_root", gt_root, "--fd_root", fd_root,
-         "--load_prop", pth, "--iterations", "3", "--batch_size", "2",
-         "--save_every", "3", "--report_every", "1", "--num_workers", "4",
-         "--save_dir", save_dir],
-        capture_output=True, text=True, timeout=600)
-    rep["cli_s"] = time.perf_counter() - t0
-    check(r.returncode == 0, f"train CLI exited {r.returncode}: {r.stderr[-2000:]}")
-    check(os.listdir(os.path.join(save_dir, "smoke")) == ["checkpoint_3.pth"],
-          f"train CLI wrote {os.listdir(os.path.join(save_dir, 'smoke'))}")
+    # `python -m mivos_tpu_torch.train` as a user runs it: the measure
+    # phase's synthetic_lifecycle (two runs, a kill and a resume).
     rep["wall_s"] = time.perf_counter() - t_phase
     log(json.dumps(rep))
     log(json.dumps({"metric": "fusion_train_step_b12_384", "window_s": window_s,
@@ -2540,7 +2258,7 @@ def held_out_session(dev, sd, hw):
     mask = np.concatenate([1.0 - fg.sum(0, keepdims=True), fg])
     core = InferenceCore(prop, fuse, im_normalize(images), HELD_K,
                          mem=MemoryConfig(top_k=TOP_K, mem_freq=MEM_FREQ), device=dev)
-    reads = expected_reads(core, 0)
+    reads = reads_of(core, 0)
     cmr.reset_launch_counts()
     labels = core.interact(mask, 0)
     torch.cuda.synchronize()
@@ -2559,29 +2277,6 @@ def held_out_session(dev, sd, hw):
     near = ((probs - 0.5).abs() < 0.07).float().mean().item()
     return {"mean_iou": float(np.mean(ious)), "near_tie_share": near,
             "reads": reads}, counts
-
-
-def trained_gate_banks(dev, sd):
-    """The JAX gate's encoder banks (scripts/pallas_kernel_check.py:84-116)
-    from the pretrained fp32 net: synthetic_sequence(7, GATE_FRAMES + 1,
-    480, 854, 3), im_normalize, labels_to_onehot, memorized frame by
-    frame; the query key of the last frame."""
-    net = PropagationNetwork(top_k=TOP_K)
-    net.load_state_dict(sd)
-    net = net.to(dev).eval()
-    images, labels = synthetic_sequence(7, GATE_FRAMES + 1, RH, RW, K)
-    images = im_normalize(images)
-    mks, mvs = [], []
-    with torch.no_grad():
-        for t in range(GATE_FRAMES):
-            frame = pad_divide_by(torch.from_numpy(images[t]).to(dev))[0]
-            masks = pad_divide_by(torch.from_numpy(labels_to_onehot(labels[t], K)).to(dev))[0]
-            mk, mv = net.memorize(frame, masks)
-            mks.append(mk)
-            mvs.append(mv)
-        qframe = pad_divide_by(torch.from_numpy(images[GATE_FRAMES]).to(dev))[0]
-        k16 = net.get_query_values(qframe)[3]
-    return torch.cat(mks, 1), torch.cat(mvs, 1), k16[0].flatten(1).t().contiguous()
 
 
 def pretrain_fusion(dev, tmp, prop_pth):
@@ -2638,6 +2333,10 @@ def phase_pretrain(dev, tmp):
             rep[kind] = pretrain_stage(kind, common + ["--steps", str(PRE_STEPS[kind])], dev)
             log(json.dumps({"pretrain": kind, **rep[kind]}))
             if kind == "prop":
+                # The single-step snapshot curriculum_ab holds the chain-3
+                # weights against.
+                shutil.copyfile(pretrain_synthetic.checkpoint_path(out, "prop"),
+                                os.path.join(out, S1_NAME))
                 rep["prop_chain3"] = pretrain_chain3(out, dev)
                 log(json.dumps({"pretrain": "prop_chain3", "hw": CHAIN3_HW,
                                 **rep["prop_chain3"]}))
@@ -2662,7 +2361,8 @@ def phase_pretrain(dev, tmp):
                             "pretrained": rep[key],
                             "random_init": rep[key + "_random_init"]}))
     torch.cuda.empty_cache()
-    errs = gate_session_shapes(*trained_gate_banks(dev, prop_sd), "pretrained")
+    errs = gate_session_shapes(*kc.encoder_banks(kc.prop_net(prop_pth), GATE_FRAMES, dev),
+                               "pretrained", log)
     log(json.dumps({"pretrained_gate_per_kernel_max_abs_err": errs}))
     torch.cuda.empty_cache()
     with cudnn_mode(benchmark=True):
@@ -2734,6 +2434,70 @@ def phase_accuracy(dev, tmp):
     return env_counts, counts
 
 
+def phase_measure(dev, tmp):
+    """The measuring entry points' mains at full width, the pretrain
+    phase's weights where they take weights (module docstring, phase
+    13c). Each holds its own kernel launches to its reads; returns them
+    by path."""
+    out = os.path.join(tmp, "weights")
+    prop, fbrs = (pretrain_synthetic.checkpoint_path(out, net) for net in ("prop", "fbrs"))
+    res = os.path.join(tmp, "measure")
+    os.makedirs(res, exist_ok=True)
+    seconds = {}
+
+    def run(name, fn, *argv):
+        t0 = time.perf_counter()
+        rep = fn([*argv, "--device", str(dev)])
+        seconds[name] = time.perf_counter() - t0
+        log(f"measure {name}: {seconds[name]:.1f} s")
+        return rep
+
+    with cudnn_mode(benchmark=True):   # the bench protocol's setting
+        headline = run("bench", bench.main)
+        slim = run("slim_decoder_bench", slim_decoder_bench.main)
+    check(headline["kernel_gate"]["ok"], f"bench gate {headline['kernel_gate']}")
+    kernel = run("kernel_check", kc.main, "--weights", prop,
+                 "--out", os.path.join(res, "kernel_check.json"))
+    sweep = run("refine_sweep", refine_sweep.main, "--weights", prop,
+                "--out", os.path.join(res, "refine_sweep.json"))
+    for row, counts in zip(sweep["rows"], sweep["launches"]):
+        check(counts["refine_bf16"] == counts["refine_merge"]
+              == row["n_refine"] * counts["candidates_bf16"],
+              f"refine_sweep n_refine={row['n_refine']}: launches {counts}")
+    run("mfu_report", mfu_report.main, "--measure", "8", "--fps", str(headline["value"]),
+        "--out", os.path.join(res, "mfu_report.json"))
+    run("interactive_latency_bench", interactive_latency_bench.main)
+    stream = run("serve_streaming_bench", serve_streaming_bench.main)
+    check(not stream["qcache_enabled"], "300 frames of 480x854 should exceed the query "
+          "cache's byte cap")
+    run("train_step_bench", train_step_bench.main)
+    # noc_synthetic's evaluation and report on the 200-step weights. Its
+    # asserts (the IoU climbs with the clicks, ends >= 0.80) are not held
+    # here: on weights of this recipe the second click drops the IoU in
+    # both packages (scripts/torch_noc_witness.py, PERF.md).
+    t0 = time.perf_counter()
+    noc = noc_synthetic.evaluate(load_reference_pth(noc_synthetic.make_net(), fbrs),
+                                 (PRE_HW, PRE_HW), NOC_SCENES, "f-BRS-B", 20, 20, dev)
+    seconds["noc_synthetic"] = time.perf_counter() - t0
+    log(json.dumps({"noc_synthetic": {k: v for k, v in noc.items() if k != "trajectories"},
+                    "first_clicks": [t[0] for t in noc["trajectories"]],
+                    "clicks": [len(t) for t in noc["trajectories"]]}))
+    curriculum = run("curriculum_ab", curriculum_ab.main, "--chain-weights", prop,
+                     "--s1-weights", os.path.join(out, S1_NAME),
+                     "--out", os.path.join(res, "curriculum_ab.json"))
+    life = run("synthetic_lifecycle", synthetic_lifecycle.main, "--weights", prop,
+               "--root", os.path.join(tmp, "lifecycle"), "--iterations", str(LIFE_ITERS),
+               "--batch", str(LIFE_BATCH), "--save-every", str(LIFE_SAVE),
+               "--report-every", str(LIFE_REPORT),
+               "--out", os.path.join(res, "synthetic_training_run.md"))
+    log(json.dumps({"phase": "measure", "seconds": seconds}))
+    return {"bench": headline["launches"], "kernel_check": kernel["launches"],
+            "refine_sweep": {name: sum(c[name] for c in sweep["launches"])
+                             for name in sweep["launches"][0]},
+            "slim_ab": slim["launches"], "serve_stream": stream["launches"],
+            "curriculum": curriculum["launches"], "lifecycle": life["launches"]}
+
+
 @contextlib.contextmanager
 def counted_reads(reads):
     """Wrap InferenceCore.interact for the duration: add the memory reads
@@ -2742,7 +2506,7 @@ def counted_reads(reads):
 
     def interact(self, mask, idx):
         backend = self.prop_net.read_backend
-        reads[backend] = reads.get(backend, 0) + expected_reads(self, idx)
+        reads[backend] = reads.get(backend, 0) + reads_of(self, idx)
         return orig(self, mask, idx)
 
     InferenceCore.interact = interact
@@ -2765,7 +2529,7 @@ MC_BANK_D = 4                       # position shards of the bank-sharded sessio
 # resolves otherwise moves a pixel by up to ~1e-3.
 MC_PROB_TOL = 2e-3
 MC_MARGIN, MC_AGREE = 0.07, 1 - 4e-4   # decided pixels; the envelope's flips
-MC_DDP_BATCH, MC_DDP_HW, MC_DDP_STEPS = 12, 384, 3
+MC_DDP_BATCH, MC_DDP_HW, MC_DDP_STEPS = 12, 384, 2
 MC_BN_SHAPE = (12, 64, 48, 48)      # N, C, H, W of the SyncBatchNorm check
 MC_BN_TOL = 1e-4                    # fp32 sums in another order, values ~1
 MC_DRYRUN = 4
@@ -2787,7 +2551,7 @@ def mc_layout(mesh):
             "repeated": len(set(devs)) < len(devs)}
 
 
-def mc_read(dev):
+def mc_read(dev, banks):
     """The bank-sharded exact read on the gate's banks (K = 3, N = 1620,
     M = 21060 and 42120, the last TAIL slots invalid, fp32 and bf16) over
     MC_SHARDS position shards and the 2D layout (MC_2D object x data),
@@ -2797,7 +2561,7 @@ def mc_read(dev):
     bounds). The object-sharded and 2D reads run as the sessions run
     them, each object shard's readout left on its device (gather=False).
     CUDA-event ms of each beside the exact read and the kernel read."""
-    mk_all, mv_all, q = gate_banks(dev)
+    mk_all, mv_all, q = banks
     layouts = {f"data{d}": (make_mesh(d, devices=mc_devices(d)), "data", None)
                for d in MC_SHARDS}
     layouts[f"object{MC_OBJECT}"] = (make_mesh(MC_OBJECT, axis="object",
@@ -3059,14 +2823,14 @@ def mc_ddp(dev):
     return rep
 
 
-def phase_multichip(dev):
+def phase_multichip(dev, banks):
     """Returns (fp32 object-session launches, bf16 launches by mode)."""
     count = torch.cuda.device_count()
     log(json.dumps({"multichip_host": {
         "cards": count, "meshes": "distinct cards where a mesh has no more "
                                   "positions than cards, else cuda:0 repeated"}}))
     t0 = time.perf_counter()
-    mc_read(dev)
+    mc_read(dev, banks)
     torch.cuda.empty_cache()
     log(f"multichip read: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3097,7 +2861,7 @@ def main():
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     with cudnn_mode(benchmark=True):   # the bench protocol's setting
-        launches_bf16, launches_f32, slim_launches = phase_session(dev)
+        launches_bf16, launches_f32 = phase_session(dev)
     log(f"session phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3139,7 +2903,6 @@ def main():
             fusion_gen_launches, fusion_gen_shapes, *data = phase_fusion_gen(dev, tmp)
             torch.cuda.empty_cache()
             fusion_gen_errs = phase_gate_davis(banks, fusion_gen_shapes, "fusion_gen")
-            del banks
             log(f"fusion_gen phase: {time.perf_counter() - t0:.1f} s")
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
@@ -3154,9 +2917,14 @@ def main():
             with cudnn_mode(benchmark=False, deterministic=True):
                 envelope_launches, protocol_launches = phase_accuracy(dev, tmp)
             log(f"accuracy phase: {time.perf_counter() - t0:.1f} s")
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            measure_launches = phase_measure(dev, tmp)
+            log(f"measure phase: {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    mc_object_fp32, mc_launches = phase_multichip(dev)
+    mc_object_fp32, mc_launches = phase_multichip(dev, banks)
+    del banks
     log(f"multichip phase: {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, phase, dtype, counters in KERNELS:
@@ -3167,10 +2935,14 @@ def main():
                   "object_session": mc_launches["object"],
                   "session_2d": mc_launches["2d"], "long_video": long_launches,
                   "envelope": envelope_launches, "full_protocol": protocol_launches,
-                  "slim": slim_launches} if dtype == BF16
+                  **{path: measure_launches[path] for path in
+                     ("bench", "kernel_check", "refine_sweep", "slim_ab", "serve_stream",
+                      "curriculum")}} if dtype == BF16
                  else {"session_fp32": launches_f32,
                        "pretrain_fusion_gen": pretrain_launches["fusion_gen"],
-                       "object_session_fp32": mc_object_fp32})
+                       "object_session_fp32": mc_object_fp32,
+                       "kernel_check_fp32": measure_launches["kernel_check"],
+                       "lifecycle": measure_launches["lifecycle"]})
         by_path = {path: sum(counts[c] for c in counters) for path, counts in paths.items()}
         session = paths["session" if dtype == BF16 else "session_fp32"]
         for c in counters:   # the session paths run every kernel (davis: no refine)

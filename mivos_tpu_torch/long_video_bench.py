@@ -40,7 +40,7 @@ import argparse
 import json
 import subprocess
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from mivos_tpu_torch.core.inference import InferenceCore
 from mivos_tpu_torch.models.initializer import init_params
 from mivos_tpu_torch.models.propagation import PropagationNetwork
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
+from mivos_tpu_torch.utils.measure import peak_gib, reads_of, sync
 
 T, H, W, K = 300, 480, 854, 2
 LIMIT_T = 960
@@ -80,24 +81,6 @@ def make_net(device, dtype: torch.dtype = torch.bfloat16, seed: int = 0,
     return init_params(net, torch.Generator().manual_seed(seed)).to(device)
 
 
-def _sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def reads_of(core: InferenceCore, idx: int) -> int:
-    """Frames the next interact(idx) propagates to: one read each."""
-    front = min([ti for ti in core.interacted if ti > idx] + [core.t])
-    back = max([ti for ti in core.interacted if ti < idx] + [-1])
-    return (front - idx - 1) + (idx - back - 1)
-
-
-def peak_gib(device) -> Optional[float]:
-    if torch.device(device).type != "cuda":
-        return None
-    return torch.cuda.max_memory_allocated(device) / 2 ** 30
-
-
 def run_config(prop: PropagationNetwork, kw: Dict, t: int, seed_base: int,
                rounds: int, device) -> Dict:
     """One multi-round session (inputs seeded per configuration, as in
@@ -111,10 +94,10 @@ def run_config(prop: PropagationNetwork, kw: Dict, t: int, seed_base: int,
     core = InferenceCore(prop, None, images, K, mem=mem, device=device)
     times = []
     for m, i in zip(masks, idxs):
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         core.interact(m, idx=i)
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
     return {"rounds_s": times, "qcache_enabled": core._qcache_enabled,
             "peak_gib": peak_gib(device)}
@@ -145,10 +128,10 @@ def run_limit(prop: PropagationNetwork, device, t: int = LIMIT_T, hw=(H, W),
     cmr.reset_launch_counts()
     for s, idx in enumerate([0, t - 1, t // 2][:rounds]):
         reads.append(reads_of(core, idx))
-        _sync(device)
+        sync(device)
         t0 = time.perf_counter()
         out = core.interact(mk_mask(100 + s, h, w, k), idx=idx)
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
         assert core.bank.cap <= bank_cap_frames, core.bank.cap
         slots.append(core.bank.num_slots)

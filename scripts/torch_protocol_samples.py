@@ -38,6 +38,9 @@ from mivos_tpu_torch.models.propagation import PropagationNetwork
 from mivos_tpu_torch.models.s2m import S2MNetwork
 
 B, F = torch.bfloat16, torch.float32
+# The pretrain phase's depth when these samples were recorded (PR 14):
+# its steps, and the default seconds of chain-3 steps.
+PRE_STEPS, CHAIN3_BOX_S = {"prop": 500, "s2m": 500}, 30.0
 VARIANTS = {"fast": (B, B, "auto"), "fast_s2m_fp32": (B, F, "auto"),
             "fast_towers_fp32": (F, B, "auto"), "read_only": (F, F, "auto"),
             "exact": (F, F, "exact")}
@@ -48,7 +51,7 @@ def pretrain(out, dev):
               "--seed", str(cs.PRE_SEED)]
     with cs.cudnn_mode(benchmark=True):
         for kind in ("prop", "s2m"):
-            cs.pretrain_stage(kind, common + ["--steps", str(cs.PRE_STEPS[kind])], dev)
+            cs.pretrain_stage(kind, common + ["--steps", str(PRE_STEPS[kind])], dev)
             if kind == "prop":
                 rep = cs.pretrain_chain3(out, dev)
                 cs.log(json.dumps({"chain3_box": cs.CHAIN3_BOX_S, "steps": rep["steps"]}))
@@ -74,7 +77,7 @@ def jf_records(out, dev, hw, names):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--samples", type=int, default=4)
-    ap.add_argument("--chain3-box", type=float, default=cs.CHAIN3_BOX_S)
+    ap.add_argument("--chain3-box", type=float, default=CHAIN3_BOX_S)
     ap.add_argument("--sizes", nargs="+", default=["480x854"])
     ap.add_argument("--variants", nargs="+", default=["fast", "read_only", "exact"],
                     choices=list(VARIANTS))

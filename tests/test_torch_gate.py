@@ -1,5 +1,6 @@
-"""The rule by which chip_smoke.py's gate holds the readout kernel to its
-plain phase, shown on the plain phases alone, on the CPU.
+"""The rule by which the kernel gate (kernel_check.gate_read) holds the
+readout kernel to its plain phase, shown on the plain phases alone, on
+the CPU.
 
 The kernel and the plain version compute the same affinity in two
 roundings, each takes its phase-A threshold by the same bisection, and
@@ -9,14 +10,14 @@ on and the other one ulp below, the first ends with its threshold at the
 entry and the second below it. On the first's threshold the second
 rounding drops the entry (pretrained banks: 9e-4 of the readout scale in
 the mean over a read, 1.2% in a row, on the card); on the lower of the
-two thresholds (`chip_smoke.shared_threshold`) both keep it. Each
+two thresholds (`kernel_check.shared_threshold`) both keep it. Each
 read is right by its own threshold: the whole reads agreed within 3e-6
 of the scale on the same banks.
 """
 import numpy as np
 import torch
 
-import chip_smoke
+from mivos_tpu_torch import kernel_check
 from mivos_tpu_torch.ops.cuda import memory_read as cmr
 
 TOP_K, M = 5, 256   # one entry a bin: the bins' counts are exact
@@ -57,7 +58,7 @@ def test_readouts_agree_on_the_lower_threshold():
         return float((ra - rb).abs().max() / ra.abs().mean())
 
     assert gap(st_a) > 1e-2           # the b rounding drops the k-th entry
-    shared = chip_smoke.shared_threshold(st_a, st_b)
+    shared = kernel_check.shared_threshold(st_a, st_b)
     assert float(shared[0, 0, 0]) == float(st_b[0, 0, 0])
     assert torch.equal(shared[:, 1:], st_a[:, 1:])
     assert gap(shared) < 1e-6
