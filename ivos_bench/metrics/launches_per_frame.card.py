@@ -1,0 +1,3 @@
+"""`launches_per_frame` in the card-paced cells, which report `prop_fps.card`: the same
+reading as metrics/launches_per_frame.py."""
+from ivos_bench.metrics.launches_per_frame import read  # noqa: F401

@@ -1,0 +1,3 @@
+"""`read_device_ms_per_frame` in the card-paced cells, which report `prop_fps.card`: the same
+reading as metrics/read_device_ms_per_frame.py."""
+from ivos_bench.metrics.read_device_ms_per_frame import read  # noqa: F401
