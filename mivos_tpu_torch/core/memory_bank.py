@@ -91,11 +91,15 @@ class MemoryBank:
             sharded_bank_write(self.mesh, self.keys, mk, row, axis)
             sharded_bank_write(self.mesh, self.values, mv, row, axis)
 
+    def rows(self, include_transient: bool) -> int:
+        """The live rows M: the committed slots', plus the transient
+        slot's when the previous frame was not committed."""
+        return (self.num_slots + int(include_transient)) * self.n
+
     def live(self, include_transient: bool) -> Tuple:
-        """Views of the live rows: the committed slots, plus the transient
-        slot when the previous frame was not committed. With a mesh, two
-        grids of per-shard views."""
-        rows = (self.num_slots + int(include_transient)) * self.n
+        """Views of the live rows (`rows`). With a mesh, two grids of
+        per-shard views."""
+        rows = self.rows(include_transient)
         if self.mesh is None:
             return self.keys[:, :rows], self.values[:, :rows]
         per = self.cap // self.mesh.size * self.n
