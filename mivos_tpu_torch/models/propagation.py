@@ -30,6 +30,7 @@ from torch import nn
 
 from mivos_tpu_torch.models.layers import (KeyValue, ResBlock, UpsampleBlock,
                                            conv3x3)
+from mivos_tpu_torch.models import memorize_graph
 from mivos_tpu_torch.models.resnet import ResNet50
 from mivos_tpu_torch.ops.memory_read import (full_softmax_affinity,
                                              memory_read as _memory_read)
@@ -137,7 +138,20 @@ class PropagationNetwork(nn.Module):
         keys (K, N, 128) and values (K, N, 512), N = H/16 * W/16.
         others: (K, H, W, 1), each object's sum of the frame's other
         masks, when `masks` holds only some of its objects (an object
-        shard); by default computed from `masks`."""
+        shard); by default computed from `masks`.
+
+        On the card, outside autograd and dispatch modes, the call
+        replays one CUDA graph per input signature
+        (`models/memorize_graph.py`): the same kernels without their
+        launches from Python."""
+        if memorize_graph.eligible(frame):
+            out = memorize_graph.run(self, frame, masks, others)
+            if out is not None:
+                return out
+        return self._memorize_eager(frame, masks, others)
+
+    def _memorize_eager(self, frame: torch.Tensor, masks: torch.Tensor,
+                        others: Optional[torch.Tensor] = None):
         k = masks.shape[0]
         frames = _nchw(frame)[None].expand(k, -1, -1, -1)
         m = _nchw(masks).to(frames.dtype)

@@ -34,7 +34,8 @@ SPANS: Tuple[str, ...] = tuple(PREFIX + s for s in (
     "memorize", "bank_write", "fuse", "chunk_issue", "chunk_wait", "hand_over",
     "render"))
 COUNTERS: Tuple[str, ...] = ("rounds", "frames", "read_rows", "memorize",
-                             "memorize_unread")
+                             "memorize_unread", "memorize_graph_replays",
+                             "memorize_graph_captures")
 
 _on = False
 _OFF = contextlib.nullcontext()

@@ -164,6 +164,8 @@ def test_memorize_calls_and_unread_last_frames(traced):
     c = traced["counters"]
     assert c["memorize"] == c["frames"] + c["rounds"]
     assert c["memorize_unread"] == traced["passes"] == 4
+    # The CPU memorizes eagerly: no graph is captured or replayed.
+    assert c["memorize_graph_replays"] == c["memorize_graph_captures"] == 0
 
 
 def test_read_rows_are_the_harness_reads_m(traced):
