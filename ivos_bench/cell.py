@@ -2,23 +2,26 @@
 built for it.
 
 `load_cell` finds, by the names in BENCHMARK.json, the configuration's
-file, the traffic mix (`traffic/<mix>.json`) and the cell's limits
-(`cells/<workload>.json`). `build_program` makes the port's networks on
+file, the traffic mix (`traffic/<mix>.json`), the cell's limits
+(`cells/<workload>.json`) and the interaction the configuration names
+(`interactions/<name>.py`). `build_program` makes the port's networks on
 the device and loads the harness's state dicts into them, as
 `checkpoint/pth.py` loads a published `.pth`. `play` runs a session's
-rounds through `InferenceCore.interact`.
+rounds through `InferenceCore.interact`, each round's mask made by the
+interaction.
 """
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ivos_bench.check import due, host_copy
-from ivos_bench.clips import interaction_mask
+from ivos_bench import interactions
+from ivos_bench.check import Snap, snap
 from ivos_bench.traffic import Traffic
 
 
@@ -29,6 +32,13 @@ class Cell:
     config: Dict
     traffic: Traffic
     limits: Dict[str, float]
+    interaction: ModuleType       # interactions/<name>.py, loaded
+
+    @property
+    def interaction_numbers(self) -> Tuple[str, ...]:
+        """The numbers the interaction names (`NUMBERS`), by which the check
+        holds its masks to the reference's."""
+        return tuple(getattr(self.interaction, "NUMBERS", ()))
 
     @property
     def dtype(self) -> torch.dtype:
@@ -49,10 +59,12 @@ def load_cell(spec: Dict, workload: str, root: Path) -> Cell:
     if entry is None:
         raise SystemExit(f"no workload {workload!r} in BENCHMARK.json")
     cfg_entry = next(c for c in spec["configs"] if c["name"] == entry["config"])
-    return Cell(name=workload, chips=entry["chips"],
-                config=json.loads((root.parent / cfg_entry["file"]).read_text()),
+    config = json.loads((root.parent / cfg_entry["file"]).read_text())
+    return Cell(name=workload, chips=entry["chips"], config=config,
                 traffic=Traffic.load(root / "traffic" / f"{entry['traffic']}.json"),
-                limits=json.loads((root / "cells" / f"{workload}.json").read_text())["limits"])
+                limits=json.loads((root / "cells" / f"{workload}.json").read_text())["limits"],
+                interaction=interactions.load(
+                    config.get("interaction", interactions.DEFAULT), root))
 
 
 def build_program(cell: Cell, sd, fsd, dev):
@@ -91,16 +103,19 @@ def new_session(cell: Cell, prop, fuse, frames_u8, dev, cache_queries=None):
                          mem=mem_config(cell, cache_queries), device=dev)
 
 
-def play(core, rounds: List[int], labels: torch.Tensor, k: int,
-         chunk_cb: Callable = lambda tis, labs: None,
-         keep: bool = True) -> List[Tuple[int, Dict[int, torch.Tensor]]]:
-    """Every round of a session; returns per round (interaction frame,
-    host copies of the probabilities of the frames it was due to
-    propagate, as `check.host_copy` keeps them), or nothing without
+def play(core, rounds: List[int], clip: Tuple[torch.Tensor, torch.Tensor], k: int,
+         interaction, chunk_cb: Callable = lambda tis, labs: None,
+         keep: bool = True, keep_masks: bool = False) -> List[Snap]:
+    """Every round of a session on `clip` (frames, labels), each round's
+    mask from `interaction.round`; returns each round as the check keeps
+    it (`check.snap`; the mask too with `keep_masks`), or nothing without
     `keep`."""
+    frames_u8, labels = clip
     snaps = []
     for r, idx in enumerate(rounds):
-        core.interact(interaction_mask(labels[idx], k), idx, chunk_cb=chunk_cb)
+        mask, record = interaction.round(frames_u8[idx], labels[idx], k, core.prob[idx])
+        core.interact(mask, idx, chunk_cb=chunk_cb)
         if keep:
-            snaps.append((idx, host_copy(core.prob, due(core.t, rounds[:r], idx))))
+            snaps.append(snap(core, rounds[:r], idx, record,
+                              mask if keep_masks else None))
     return snaps

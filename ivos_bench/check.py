@@ -6,9 +6,12 @@ round is due to propagate (`due`), as the session holds them when
 the frame's own H x W), copied to host memory then (`host_copy`), so
 that the check holds nothing on the card and a later write in place
 does not change an earlier round's answer. The reference session is
-given the same weights, frames and interactions, works out its own
-state, and is compared round by round; a frame the reference sets and
-the program left unset counts as all zeros.
+given the same weights and frames, and each round the mask the
+interaction's reference side replays from the record the program's side
+kept (`interactions/`; for `mask` both sides hand over the frame's label
+mask); it works out its own state and is compared round by round; a
+frame the reference sets and the program left unset counts as all
+zeros.
 
 Three numbers, each held to its own limit from the cell's file
 (`ivos_bench/cells/<workload>.json`):
@@ -23,10 +26,14 @@ Three numbers, each held to its own limit from the cell's file
                   histogram of 4000 bins even in log10 over [1e-10, 1]
                   (each bin 0.58% wide; the bin's upper edge is read);
                   prob_p50, prob_p90 and prob_p99 likewise
+
+An interaction that names `NUMBERS` adds those of the same statistics
+over its masks against the reference's replay, each round's mask one
+"frame", as `interaction_<number>`.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -87,6 +94,22 @@ def host_copy(prob: List[Optional[torch.Tensor]],
             for ti in frames if prob[ti] is not None}
 
 
+class Snap(NamedTuple):
+    """A round of a run as the check keeps it, all in host memory."""
+    frame: int                       # the interaction frame
+    probs: Dict[int, torch.Tensor]   # `host_copy` of the frames it was due to propagate
+    record: object = None            # the interaction's record
+    mask: Optional[torch.Tensor] = None   # the interaction's mask, where kept
+
+
+def snap(core, earlier: List[int], idx: int, record=None,
+         mask: Optional[torch.Tensor] = None) -> Snap:
+    """The round at idx of a session (`core.prob`, `core.t`) that
+    followed the interactions `earlier`."""
+    return Snap(idx, host_copy(core.prob, due(core.t, earlier, idx)), record,
+                None if mask is None else mask.detach().to("cpu", copy=True))
+
+
 def changed(before: List[Optional[torch.Tensor]],
             after: List[Optional[torch.Tensor]], idx: int) -> List[int]:
     """Frames a round set anew, other than its interaction frame idx."""
@@ -98,36 +121,48 @@ def judge(numbers: Dict[str, float], limits: Dict[str, float]) -> bool:
     return all(numbers[name] <= limit for name, limit in limits.items())
 
 
-def gaps(sessions: List[Tuple[object, Dict[str, list]]], sd, fsd, cfg: Dict,
-         traffic, clips, dev) -> Dict[str, Dict[str, float]]:
+def gaps(sessions: List[Tuple[object, Dict[str, List[Snap]]]], sd, fsd, cell,
+         clips, reference, dev) -> Dict[str, Dict[str, float]]:
     """Run the reference (float32, TF32 off) over each session plan and
-    compare, round by round, every named run of it: {name: per round
-    (interaction frame, {frame: probabilities} as `host_copy` keeps
-    them)}. Returns
-    {name: numbers}; empty when there is no session. Each run's rounds
-    are dropped once compared."""
-    from ivos_bench.clips import interaction_mask
+    compare, round by round, every named run of it: {name: its rounds as
+    `Snap`s}. Each round's mask is `reference.replay` of the record of
+    the session's first run (the cell's interaction's reference side).
+    Returns {name: numbers}; empty when there is no session. Each run's
+    rounds are dropped once compared."""
     from ivos_bench.reference.nets import build
     from ivos_bench.reference.precision import tf32
     from ivos_bench.reference.session import Session
 
     if not sessions:
         return {}
-    ref_prop, ref_fuse = build(sd, dev, cfg["top_k"], fsd)
+    traffic = cell.traffic
+    kept = cell.interaction_numbers
+    ref_prop, ref_fuse = build(sd, dev, cell.config["top_k"], fsd)
     found = {name: Gap(dev) for _, runs in sessions for name in runs}
+    masks = {name: Gap(dev) for name in found} if kept else {}
     with tf32(False), torch.no_grad():
         for plan, runs in sessions:
             frames_u8, labels = clips[plan.clip]
+            lead = next(iter(runs.values()))
             ref = Session(ref_prop, ref_fuse, frames_u8, traffic.k,
                           traffic.mem_freq, cache_queries=len(plan.rounds) > 1)
             for r, idx in enumerate(plan.rounds):
+                want = reference.replay(frames_u8[idx], labels[idx], traffic.k,
+                                        lead[r].record)
                 before = list(ref.prob)
-                after = ref.interact(interaction_mask(labels[idx], traffic.k), idx)
+                after = ref.interact(want, idx)
                 for name, snaps in runs.items():
-                    got = snaps[r][1]
+                    got = snaps[r]
                     for ti in changed(before, after, idx):
-                        p = got.get(ti)
+                        p = got.probs.get(ti)
                         p = torch.zeros_like(after[ti]) if p is None else p.to(dev)
                         found[name].add(p, after[ti], ref.pad)
+                    if kept:
+                        masks[name].add(got.mask.to(dev)[..., 0], want[..., 0],
+                                        (0, 0, 0, 0))
                     snaps[r] = None
-    return {name: g.numbers() for name, g in found.items()}
+    out = {name: g.numbers() for name, g in found.items()}
+    for name, g in masks.items():
+        out[name].update({f"interaction_{n}": v for n, v in g.numbers().items()
+                          if n in kept})
+    return out

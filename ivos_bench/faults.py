@@ -17,6 +17,12 @@
   half_objects          the readouts of the second half of the objects
                         are replaced by the mean of the first half's (no
                         cell catches it: PERF.md)
+  interaction_altered   the cell's interaction (`interactions/`), where
+                        it makes a mask on a frame the session has
+                        already propagated, gives object 1's
+                        probability to the background: an answer
+                        altered where it is produced, whatever the
+                        interaction
 
 The exchange between chips has no fault here: every cell runs on one
 chip.
@@ -107,10 +113,37 @@ def _half_objects():
     return mock.patch.object(PropagationNetwork, "read_memory", read_half)
 
 
+class _Altered:
+    def __init__(self, inner):
+        self.inner = inner
+
+    def round(self, frame_u8, labels, k, prob):
+        mask, record = self.inner.round(frame_u8, labels, k, prob)
+        if prob is not None:
+            mask = mask.clone()
+            mask[0] += mask[1]
+            mask[1] = 0
+        return mask, record
+
+
+def _interaction_altered():
+    from ivos_bench import interactions
+
+    load = interactions.load
+
+    def load_altered(name, root):
+        mod = load(name, root)
+        setup = mod.setup
+        mod.setup = lambda cell, seed, dev: _Altered(setup(cell, seed, dev))
+        return mod
+    return mock.patch.object(interactions, "load", load_altered)
+
+
 FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
           "answer_altered": _answer_altered,
           "bank_commits_dropped": _bank_commits_dropped,
-          "half_objects": _half_objects}
+          "half_objects": _half_objects,
+          "interaction_altered": _interaction_altered}
 
 
 @contextlib.contextmanager

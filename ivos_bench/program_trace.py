@@ -18,9 +18,8 @@ harness's span names, with the program's (`trace.SPANS`):
 
 `metrics` turns that and the counters' snapshot into the per-layer
 numbers, each None where the trace or the counters hold nothing to read.
-Nothing here runs in a harness run yet: PERF.md §7 names the edit of
-`run.py` that enables the program's tracing with the profiler and calls
-this read.
+A `--trace 1` run (`run.Tracer`) turns the program's tracing on with the
+profiler and hands this read to the metric readers as `Run.program`.
 """
 from __future__ import annotations
 

@@ -4,24 +4,30 @@
 
 Everything a cell is made of is found by name from `BENCHMARK.json` at
 the checkout's root: the configuration's file (`configs/<config>.json`),
+the interaction it names (`interactions/<name>.py`, default `mask`),
 the traffic mix (`traffic/<mix>.json`, read by `traffic.py`), the
 cell's correctness limits (`cells/<workload>.json`) and one reader per
 metric (`metrics/<metric>.py`, a `read(run)` that returns a number or
 None).
 
 Set-up (`setup_s`): weights and clips made on the card from the seed,
-the program's networks loaded from the state dict, one warm session on
-the cell's shapes (which builds or loads the kernel library in the
-checkout's build cache). Then the window: closed-loop annotation
-sessions through `InferenceCore.interact(mask, idx, chunk_cb=...)` for
-`--seconds`. Frames count when their chunk is handed over inside the
-window; a round in flight at its end finishes or is cut, as the mix
-says. The checked session's answers are copied to host memory after
-each of its rounds (`check.host_copy`); the window's clock stops for
-those copies. With `--trace 1` the run installs spans (`spans.py`),
-counts the model's work on MiVOS's schedule (`counts.Schedule`) and
-profiles the part of the window the mix names, counted from the start
-of the session after the checked one. After the window: the card's
+the program's networks loaded from the state dict, the interaction's
+program side (`setup`), one warm session on the cell's shapes (which
+builds or loads the kernel library in the checkout's build cache). Then
+the window: closed-loop annotation sessions for `--seconds`, each round
+`interaction.round` on the frame, then, on the round's clock,
+`InferenceCore.interact(mask, idx, chunk_cb=...)`. Frames count when
+their chunk is handed over inside the window; a round in flight at its
+end finishes or is cut, as the mix says. The checked session's answers
+are copied to host memory after each of its rounds (`check.snap`); the
+window's clock stops for those copies. With `--trace 1` the run installs
+spans (`spans.py`), counts the model's work on MiVOS's schedule
+(`counts.Schedule`) and profiles the part of the window the mix names,
+counted from the start of the session after the checked one, with the
+program's own spans and counters on over the same part
+(`mivos_tpu_torch.utils.trace`); the exported trace is read twice, for
+the harness's spans (`trace.py`, `Run.trace`) and for the program's
+(`program_trace.py`, `Run.program`). After the window: the card's
 peak memory and the comparison of the checked session with the plain
 reference (`check.py`). A run in which a JAX module or the JAX package
 has been loaded, checked when the window closes and again before the
@@ -61,6 +67,7 @@ class Run:
     """What the metric readers read."""
     config: Dict
     seconds: float
+    traffic: object = None        # traffic.Traffic, the cell's mix
     setup_s: float = 0.0
     frames: int = 0
     rounds: List[Round] = field(default_factory=list)
@@ -68,6 +75,7 @@ class Run:
     trace: object = None          # trace.TraceSummary of the traced part
     counts: object = None         # spans.Counts of the traced part
     work: object = None           # counts.Work of the traced part
+    program: object = None        # program_trace.ProgramTrace of the traced part
     phase_flops: Dict[str, float] = field(default_factory=dict)
 
 
@@ -101,6 +109,16 @@ def _profiler():
     return torch.profiler.profile(activities=acts)
 
 
+def _program_tracing():
+    """The port's own spans and counters (`mivos_tpu_torch.utils.trace`),
+    or None for a program without them."""
+    try:
+        from mivos_tpu_torch.utils import trace
+    except ImportError:
+        return None
+    return trace
+
+
 def warm_profiler() -> None:
     """Start and stop a profiler once in set-up: the first start loads
     and initialises the tracing library, which takes seconds."""
@@ -113,13 +131,15 @@ class Tracer:
     """torch.profiler over the part [start_s, end_s] of the window,
     counted from `arm(now)`: started at the first round or chunk boundary
     after start_s and stopped at the first after it has run
-    end_s - start_s."""
+    end_s - start_s. The program's own tracing is on while the profiler
+    runs."""
 
     def __init__(self, spans, span_s, sync):
         self.spans, self.sync, self.span_s = spans, sync, span_s
         self.length = span_s[1] - span_s[0]
         self.t_on = None
         self.prof = None
+        self.program = _program_tracing()
         self.started = self.stopped = 0.0
 
     def arm(self, now: float) -> None:
@@ -131,6 +151,8 @@ class Tracer:
             self.prof = _profiler()
             self.sync()
             self.prof.start()
+            if self.program is not None:
+                self.program.enable()
             self.started = time.perf_counter()
             self.spans.active = True
         elif (self.prof is not None and not self.stopped
@@ -147,18 +169,27 @@ class Tracer:
             self.sync()
             self.stopped = time.perf_counter()
             self.spans.active = False
+            if self.program is not None:
+                self.program.disable()
             self.prof.stop()
 
     def summary(self, spans: tuple):
+        """(trace.TraceSummary for the harness's `spans`,
+        program_trace.ProgramTrace or None), each None without a
+        profile."""
+        from ivos_bench.program_trace import read_program_trace
         from ivos_bench.trace import read_chrome_trace
 
         if self.prof is None:
-            return None
+            return None, None
         fd, path = tempfile.mkstemp(suffix=".json", prefix="ivos_trace_")
         os.close(fd)
         try:
             self.prof.export_chrome_trace(path)
-            return read_chrome_trace(Path(path), self.stopped - self.started, spans)
+            harness = read_chrome_trace(Path(path), self.stopped - self.started, spans)
+            program = None if self.program is None else read_program_trace(
+                Path(path), self.program.SPANS, self.program.counters())
+            return harness, program
         finally:
             os.unlink(path)
 
@@ -184,8 +215,8 @@ def main(argv=None, device: Optional[str] = None,
     import torch
 
     from ivos_bench.cell import build_program, load_cell, new_session, play
-    from ivos_bench.check import due, host_copy
-    from ivos_bench.clips import interaction_mask, make_clip
+    from ivos_bench.check import snap
+    from ivos_bench.clips import make_clip
     from ivos_bench.weights import make_weights
 
     cell = load_cell(spec, args.workload, root)
@@ -216,15 +247,18 @@ def main(argv=None, device: Optional[str] = None,
     stage("clips")
     prop, fuse = build_program(cell, sd, fsd, dev)
     stage("program")
+    inter = cell.interaction.setup(cell, args.seed, dev)
+    keep_masks = bool(cell.interaction_numbers)
+    stage("interaction")
     warm = new_session(cell, prop, fuse, clips[0][0][:traffic.warm_frames], dev,
                        traffic.warm_cache_queries)
-    play(warm, traffic.warm_rounds, clips[0][1], traffic.k, keep=False)
+    play(warm, traffic.warm_rounds, clips[0], traffic.k, inter, keep=False)
     del warm
     stage("warm")
     if args.trace:
         warm_profiler()
         stage("profiler")
-    run = Run(config=cfg, seconds=args.seconds)
+    run = Run(config=cfg, seconds=args.seconds, traffic=traffic)
     run.setup_s = time.perf_counter() - t0
     sys.stderr.write(f"set-up stages (s from start): {stages}\n")
 
@@ -240,7 +274,7 @@ def main(argv=None, device: Optional[str] = None,
     if is_cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     checked = traffic.checked(args.seed)
-    compared = None   # (plan, per round (frame, host copies)) of the checked session
+    compared = None   # (plan, its rounds as check.Snap) of the checked session
     attempted = failed = 0
     copy_s = 0.0   # the clock stops for the checked session's copies
     start = time.perf_counter()
@@ -248,71 +282,75 @@ def main(argv=None, device: Optional[str] = None,
     if spans is not None:
         tracer = Tracer(spans, traffic.trace_span, sync)
     cut = False
-    for plan in traffic.sessions(args.seed):
-        if time.perf_counter() >= deadline:
-            break
-        frames_u8, labels = clips[plan.clip]
-        core = new_session(cell, prop, fuse, frames_u8, dev)
-        snaps = [] if plan.index == checked else None
-        if tracer is not None:
-            if plan.index > checked:
-                tracer.arm(time.perf_counter())
-            schedule = Schedule(traffic.t, traffic.k, (nh // 16) * (nw // 16),
-                                traffic.mem_freq, fuse is not None)
-        for r, idx in enumerate(plan.rounds):
-            now = time.perf_counter()
-            if now >= deadline:
+    try:
+        for plan in traffic.sessions(args.seed):
+            if time.perf_counter() >= deadline:
                 break
+            frames_u8, labels = clips[plan.clip]
+            core = new_session(cell, prop, fuse, frames_u8, dev)
+            snaps = [] if plan.index == checked else None
             if tracer is not None:
-                tracer.tick(now)
-                spans.counts.rounds += int(spans.active)
-                schedule.interact(idx, run.work if spans.active else None)
-            mask = interaction_mask(labels[idx], traffic.k)
-            rec = Round()
-            t_call = time.perf_counter()
-
-            def chunk(tis, labs, rec=rec, t_call=t_call):
+                if plan.index > checked:
+                    tracer.arm(time.perf_counter())
+                schedule = Schedule(traffic.t, traffic.k, (nh // 16) * (nw // 16),
+                                    traffic.mem_freq, fuse is not None)
+            for r, idx in enumerate(plan.rounds):
                 now = time.perf_counter()
-                if rec.first_ms is None:
-                    rec.first_ms = (now - t_call) * 1e3
-                if now <= deadline:
-                    run.frames += len(tis)
-                elif not traffic.finish_last_round:
-                    raise Cut
+                if now >= deadline:
+                    break
                 if tracer is not None:
-                    if spans.active:
-                        schedule.count(run.work, tis)
                     tracer.tick(now)
+                    spans.counts.rounds += int(spans.active)
+                    schedule.interact(idx, run.work if spans.active else None)
+                mask, record = inter.round(frames_u8[idx], labels[idx], traffic.k,
+                                           core.prob[idx])
+                rec = Round()
+                t_call = time.perf_counter()
 
-            attempted += 1
-            try:
-                with torch.profiler.record_function("round"):
-                    core.interact(mask, idx, chunk_cb=chunk)
-                sync()
-            except Cut:
-                sync()
-                cut = True
+                def chunk(tis, labs, rec=rec, t_call=t_call):
+                    now = time.perf_counter()
+                    if rec.first_ms is None:
+                        rec.first_ms = (now - t_call) * 1e3
+                    if now <= deadline:
+                        run.frames += len(tis)
+                    elif not traffic.finish_last_round:
+                        raise Cut
+                    if tracer is not None:
+                        if spans.active:
+                            schedule.count(run.work, tis)
+                        tracer.tick(now)
+
+                attempted += 1
+                try:
+                    with torch.profiler.record_function("round"):
+                        core.interact(mask, idx, chunk_cb=chunk)
+                    sync()
+                except Cut:
+                    sync()
+                    cut = True
+                    break
+                except Exception as e:  # a failed round counts; the run goes on
+                    sys.stderr.write(f"round at frame {idx} failed: {e!r}\n")
+                    failed += 1
+                    break
+                t_end = time.perf_counter()
+                rec.ms = (t_end - t_call) * 1e3
+                rec.traced = tracer is not None and tracer.overlaps(t_call, t_end)
+                run.rounds.append(rec)
+                if snaps is not None:
+                    t_copy = time.perf_counter()
+                    snaps.append(snap(core, plan.rounds[:r], idx, record,
+                                      mask if keep_masks else None))
+                    copy_s += time.perf_counter() - t_copy
+                    deadline = start + args.seconds + copy_s
+            if snaps is not None and len(snaps) == len(plan.rounds):
+                compared = (plan, snaps)
+            del core
+            if cut:
                 break
-            except Exception as e:  # a failed round counts; the run goes on
-                sys.stderr.write(f"round at frame {idx} failed: {e!r}\n")
-                failed += 1
-                break
-            t_end = time.perf_counter()
-            rec.ms = (t_end - t_call) * 1e3
-            rec.traced = tracer is not None and tracer.overlaps(t_call, t_end)
-            run.rounds.append(rec)
-            if snaps is not None:
-                t_copy = time.perf_counter()
-                snaps.append((idx, host_copy(core.prob, due(core.t, plan.rounds[:r], idx))))
-                copy_s += time.perf_counter() - t_copy
-                deadline = start + args.seconds + copy_s
-        if snaps is not None and len(snaps) == len(plan.rounds):
-            compared = (plan, snaps)
-        del core
-        if cut:
-            break
-    if tracer is not None:
-        tracer.stop()
+    finally:   # the profiler and the program's tracing stop on every way out
+        if tracer is not None:
+            tracer.stop()
     sync()
     run.peak_bytes = torch.cuda.max_memory_allocated(dev) if is_cuda else 0
     sys.stderr.write(f"window {time.perf_counter() - start:.3f} s, of which the "
@@ -323,10 +361,10 @@ def main(argv=None, device: Optional[str] = None,
         from ivos_bench.counts import phase_flops
         from ivos_bench.spans import ENTRY_POINTS
 
-        run.trace = tracer.summary(tuple(ENTRY_POINTS) + ("round",))
+        run.trace, run.program = tracer.summary(tuple(ENTRY_POINTS) + ("round",))
         run.counts = spans.counts
         run.phase_flops = phase_flops(nh, nw, traffic.k)
-    del prop, fuse
+    del prop, fuse, inter
     if is_cuda:
         torch.cuda.empty_cache()
 
@@ -334,7 +372,8 @@ def main(argv=None, device: Optional[str] = None,
     from ivos_bench.check import gaps, judge
 
     numbers = gaps([(compared[0], {"program": compared[1]})] if compared else [],
-                   sd, fsd, cfg, traffic, clips, dev).get("program")
+                   sd, fsd, cell, clips,
+                   cell.interaction.reference(cell, args.seed, dev), dev).get("program")
     del sd, fsd, compared, clips
 
     correct = numbers is not None and judge(numbers, cell.limits) and failed == 0

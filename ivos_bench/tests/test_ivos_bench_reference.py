@@ -19,6 +19,7 @@ import torch
 from ivos_bench.cell import play
 from ivos_bench.check import Gap, changed, due
 from ivos_bench.clips import interaction_mask, make_clip
+from ivos_bench.interactions import mask
 from ivos_bench.reference import nets as ref_nets
 from ivos_bench.reference.session import Session
 from ivos_bench.weights import make_weights
@@ -55,7 +56,7 @@ def _session_gap(inputs, backend):
     prop, fuse = _port(sd, fsd, backend)
     core = InferenceCore(prop, fuse, frames, K, mem=MemoryConfig(mem_freq=2),
                          device="cpu")
-    got = play(core, ROUNDS, labels, K)
+    got = play(core, ROUNDS, (frames, labels), K, mask.setup(None, 11, "cpu"))
     rprop, rfuse = ref_nets.build(sd, "cpu", 50, fsd)
     ref = Session(rprop, rfuse, frames, K, 2, cache_queries=True)
     gap, compared = Gap("cpu"), 0

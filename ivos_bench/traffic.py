@@ -26,6 +26,11 @@ round sent when the last returns:
                                    run profiles: [start_s, end_s] from the
                                    start of the session after the checked
                                    one
+  interaction                      optional parameters of the cell's
+                                   interaction (`interactions/`), such as
+                                   {"clicks": 3}: handed to its module
+                                   untouched as `Traffic.interaction`
+                                   (default {})
 
 The seed picks the clips' content and where in the lists of clips and
 schedules the run starts; every seed runs the same schedules in turn,
@@ -39,7 +44,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, List
 
-DEFAULTS = {"finish_last_round": True, "check_among": 1, "warm": {}}
+DEFAULTS = {"finish_last_round": True, "check_among": 1, "warm": {}, "interaction": {}}
 
 
 @dataclass(frozen=True)
@@ -65,6 +70,7 @@ class Traffic:
         self.warm_cache_queries = p["warm"].get("cache_queries")
         self.check_among = p["check_among"]
         self.trace_span = tuple(p.get("trace", (0.0, float("inf"))))
+        self.interaction = p["interaction"]
         for s in self.schedules:
             if not s or len(set(s)) != len(s) or not all(0 <= f < self.t for f in s):
                 raise ValueError(f"{name}: bad schedule {s} for {self.t} frames")
